@@ -1,0 +1,17 @@
+from repro_torch.workload.fb import (
+    FB_CLASSES,
+    WorkloadSpec,
+    fb_cluster,
+    fb_dataset,
+    fb_scaled_dataset,
+    job_class,
+)
+
+__all__ = [
+    "FB_CLASSES",
+    "WorkloadSpec",
+    "fb_cluster",
+    "fb_dataset",
+    "fb_scaled_dataset",
+    "job_class",
+]

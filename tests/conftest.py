@@ -16,6 +16,14 @@ os.environ.setdefault(
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device; the test skips itself where none is "
+        "present (run them on a GPU host: python -m pytest -m cuda)",
+    )
+
+
 def pytest_collection_modifyitems(config, items):
     # Per-test wall-clock budget: the fault-injection and self-healing
     # sweep suites spawn worker processes, and a hung child should fail
