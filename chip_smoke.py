@@ -4,14 +4,16 @@
 
 Runs from the root of a checkout (it puts ``src/`` on the path itself)
 and imports nothing of JAX or of the JAX package ``repro``.  Phases, each
-printing one JSON line; any failure raises and the script exits non-zero:
+printing one JSON line with its seconds; any failure raises and the
+script exits non-zero:
 
 1. environment: the card, its power limit, torch/CUDA versions, and the
-   build of every CUDA source of the port (``nvcc`` at first use);
-2. the water-fill kernel against its plain PyTorch version on the card,
-   bitwise, at widths 8 ... 5120 (more than one lane per thread above
-   1024) and on degenerate rows, with a rerun and the launch counter;
-3. the main path: the 4 seeds x 4 policies x 4 error alphas = 64-cell
+   build of every CUDA source of the port (one ``nvcc`` each, all started
+   together, at first use);
+2. the water-fill kernel (K1) against its plain PyTorch version on the
+   card, bitwise, at widths 8 ... 5120 (more than one lane per thread
+   above 1024) and on degenerate rows, with a rerun and the launch counter;
+3. the accel path: the 4 seeds x 4 policies x 4 error alphas = 64-cell
    matrix on the full paper FB workload (100 jobs, 100 machines, 400 map
    and 200 reduce slots) through ``run_cells_accel(device="cuda")``,
    cold and warm, then once more with the plain water-fill, which must
@@ -19,14 +21,33 @@ printing one JSON line; any failure raises and the script exits non-zero:
    fifo on mean sojourn at alpha 0 on every seed;
 4. wide rows: 4 hfsp cells of 1000 ``fb_scaled`` jobs on 100 machines
    (width 1024) through the same entry point, kernel and plain version;
-5. per-kernel timing on inputs captured from the main path, beside the
-   bound of the work, and a short profile of the hfsp step;
-6. the ``{"kernels": [...]}`` line, the card's name and power limit, and
-   the final ``{"ok": true, ...}`` line.
+5. K1 timing on inputs captured from the accel path, beside the bound of
+   the work, and a short profile of the hfsp step;
+6. the flash attention kernel (K2) against its plain PyTorch version on
+   the card, f32 (atol = rtol = 2e-5) and bf16 (atol 2e-2), on the shapes
+   of tests/test_kernels.py, three windows, olmo-1b's (4, 16, 4096, 128)
+   and starcoder2-3b's GQA (1, 24 -> 2, 2048, 128), with bitwise reruns
+   and the launch counter;
+7. the serving path: olmo-1b at its published widths (16 layers, d_model
+   2048, vocab 50304; random weights from ``--seed``) through
+   ``make_prefill_step(use_flash=True, last_token_only=True)`` on 4 x 4096
+   prompt tokens in bf16, cold and warm (16 K2 launches per prefill), a
+   profile of one prefill, then ``greedy_generate`` for 4 requests of 64
+   prompt and 32 new tokens;
+8. serving cross-checks in f32 on the same weights: prefill logits with K2
+   against the plain version (atol 1e-3), and the last prompt position's
+   prefill logits against the decode-cache route's (atol 1e-3);
+9. K2 timing at the olmo shape beside its bound, the plain version and
+   ``F.scaled_dot_product_attention`` (timed only, never on the path);
+10. the ``{"kernels": [...]}`` line, the card's name and power limit, and
+    the final ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -42,6 +63,8 @@ ROOT = Path(__file__).resolve().parent
 #: cores (the water-fill is f64 element-wise work).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F64_PER_S = 34e12
+#: bf16 dense tensor-core peak (the yardstick for attention's bound).
+PEAK_BF16_PER_S = 989e12
 #: f64 operations per lane per round of the water-fill as the plain
 #: version writes it: the weight sum's add, the share's multiply and
 #: divide, headroom and headroom-minus-eps subtractions, the capped
@@ -113,19 +136,20 @@ def drop_wall(results: list[dict]) -> list[dict]:
 
 # ---------------------------------------------------------------------------
 def phase_environment():
-    from repro_torch.accel import _build
+    from repro_torch import _build
 
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    for src in sorted(_build.CSRC.glob("*.cu")):
-        _build.load(src.stem)
+    _build.build_all()
+    for name in _build.KERNELS:
+        _build.load(name)
     build_s = time.perf_counter() - t0
     ptxas = [
         line.strip()
         for info in _build.BUILD_INFO.values()
         for line in info["log"].splitlines()
-        if "spill" in line or "Used" in line
+        if "spill" in line or "Used" in line or "Compiling" in line
     ]
     emit("environment", card=card, torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
@@ -448,7 +472,305 @@ def phase_kernel_timing(main_launches: int):
     }
 
 
+# ---------------------------------------------------------------------------
+# Flash attention (K2) and the dense serving path
+# ---------------------------------------------------------------------------
+#: (name, b, h, kvh, s, hd, block_q, block_kv, window): the shapes of
+#: tests/test_kernels.py, its three windows, and the two model shapes.
+FLASH_CASES = (
+    ("mha", 1, 2, 2, 64, 32, 32, 32, None),
+    ("gqa-2:1", 2, 4, 2, 128, 64, 64, 32, None),
+    ("mqa", 1, 8, 1, 128, 32, 32, 64, None),
+    ("3-block", 2, 2, 2, 96, 32, 32, 32, None),
+    ("ragged-q80", 1, 2, 2, 80, 32, 32, 32, None),
+    ("window16", 1, 2, 2, 128, 32, 32, 32, 16),
+    ("window48", 1, 2, 2, 128, 32, 32, 32, 48),
+    ("window100", 1, 2, 2, 128, 32, 32, 32, 100),
+    ("olmo-1b", 4, 16, 16, 4096, 128, 512, 512, None),
+    ("starcoder2-3b", 1, 24, 2, 2048, 128, 512, 512, None),
+)
+#: dtype -> (atol, rtol) of K2 against its plain version: f32 sums in
+#: another order; bf16 adds one rounding of the output.
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 0.0)}
+SERVE_TOL = 1e-3  # f32 logits, kernel vs plain and prefill vs decode route
+
+
+def flash_inputs(gen, b, h, kvh, s, hd, dtype):
+    """q, k, v as the model-layout adapter passes them: (b, h, s, hd)
+    views of (b, s, h, hd) tensors."""
+    def one(heads):
+        x = torch.randn((b, s, heads, hd), generator=gen, device="cuda")
+        return x.to(dtype).transpose(1, 2)
+    return one(h), one(kvh), one(kvh)
+
+
+def flash_bound(b, h, kvh, s, hd, dtype) -> tuple[float, str, int, int]:
+    """(bound_ms, bound_by, bytes, flops) of one causal call: each input
+    read once and the output written once; two products over the s(s+1)/2
+    unmasked (q, k) pairs of each head."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (2 * b * h * s * hd + 2 * b * kvh * s * hd) * esize
+    flops = 4 * b * h * hd * (s * (s + 1) // 2)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, flops
+    return t_ops, "operations", nbytes, flops
+
+
+def phase_flash_kernel_vs_plain(seed: int):
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for dtype, (atol, rtol) in FLASH_TOL.items():
+        for name, b, h, kvh, s, hd, bq, bkv, window in FLASH_CASES:
+            q, k, v = flash_inputs(gen, b, h, kvh, s, hd, dtype)
+            kw = dict(scale=hd ** -0.5, window=window, block_q=bq,
+                      block_kv=bkv)
+            before = fk.launches
+            got = fk.flash_attention_cuda(q, k, v, **kw)
+            again = fk.flash_attention_cuda(q, k, v, **kw)
+            want = fk.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if fk.launches != before + 2:
+                raise AssertionError(f"{name}: launch counter did not advance")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: kernel rerun not bitwise equal")
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            if not bool((diff <= atol + rtol * want.float().abs()).all()):
+                raise AssertionError(
+                    f"{name} {dtype}: kernel != plain version "
+                    f"(max abs err {err}, atol {atol}, rtol {rtol})")
+            emit("flash_kernel_vs_plain", case=name,
+                 dtype=str(dtype).replace("torch.", ""),
+                 shape=[b, h, kvh, s, hd], window=window, max_abs_err=err,
+                 atol=atol, rtol=rtol, rerun_bitwise_equal=True)
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """Route the model's flash path to K2's plain version (on the card),
+    for the cross-check against the kernel."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops
+
+    ops.flash_attention_bhsd = fk.flash_attention_plain
+    try:
+        yield
+    finally:
+        ops.flash_attention_bhsd = fk.flash_attention_bhsd
+
+
+def profile_device(fn, steps: int = 1):
+    """Device time by kernel over ``steps`` calls of ``fn()``, and the
+    device's busy share of their wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(ev.self_device_time_total for ev in kernels)
+    flash_us = sum(ev.self_device_time_total for ev in kernels
+                   if "flash_fwd" in ev.key)
+    measured = total_us > 0
+    top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:6]
+    return {
+        "steps": steps,
+        "wall_ms_per_step": wall * 1e3 / steps,
+        "device_ms_per_step": total_us / 1e3 / steps if measured
+        else "not measured",
+        "device_busy_share": total_us / 1e6 / wall if measured
+        else "not measured",
+        "flash_share_of_device": flash_us / total_us if measured
+        else "not measured",
+        "kernel_launches_per_step": sum(ev.count for ev in kernels) / steps,
+        "top_kernels_us": [[ev.key[:70], ev.count, ev.self_device_time_total]
+                           for ev in top],
+    }
+
+
+def phase_serve_main_path(seed: int):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import init_cache, init_model
+    from repro_torch.serve import (
+        greedy_generate,
+        make_decode_step,
+        make_prefill_step,
+    )
+
+    cfg = get_config("olmo_1b")  # published widths, bf16 activations
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_model(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    b, s = 4, 4096
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+                            device="cuda")
+    prefill = make_prefill_step(cfg, use_flash=True, last_token_only=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    fk.launches = 0
+    walls, per_prefill = [], []
+    for _ in range(2):  # cold, warm
+        before = fk.launches
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_prefill.append(fk.launches - before)
+    t0 = time.perf_counter()
+    out = greedy_generate(cfg, params, prompts, 32)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = fk.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    if per_prefill != [cfg.num_layers] * 2:
+        raise AssertionError(f"K2 launches per prefill {per_prefill}, "
+                             f"expected {cfg.num_layers}")
+    if logits.shape != (b, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
+    if out.shape != (4, 96) or not torch.equal(out[:, :64], prompts) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"bad greedy output {tuple(out.shape)}")
+    prof_prefill = profile_device(lambda: prefill(params, {"tokens": tokens}))
+    # Decode steps of the greedy loop's shape: 4 rows at position 63 of a
+    # 96-slot cache.
+    step = make_decode_step(cfg)
+    cache = init_cache(cfg, 4, 96, device="cuda")
+    pos = torch.full((4,), 63, dtype=torch.long, device="cuda")
+    prof_decode = profile_device(
+        lambda: step(params, prompts[:, -1:], pos, cache), steps=8)
+    emit("serve_main_path", model=cfg.name, params=n_params,
+         param_dtype=cfg.param_dtype, dtype=cfg.dtype, init_s=init_s,
+         prefill_batch=[b, s], prefill_cold_s=walls[0],
+         prefill_warm_s=walls[1],
+         prefill_cold_tokens_per_s=b * s / walls[0],
+         prefill_warm_tokens_per_s=b * s / walls[1],
+         k2_launches_per_prefill=per_prefill,
+         generate_requests=4, generate_prompt=64, generate_new=32,
+         generate_s=gen_s, decode_steps=64 + 32 - 1,
+         decode_new_tokens_per_s=4 * 32 / gen_s,
+         decode_steps_per_s=(64 + 32 - 1) / gen_s,
+         peak_memory_gb=peak_gb, k2_launches=launches,
+         profile_warm_prefill=prof_prefill, profile_decode_step=prof_decode)
+    return cfg, params, launches, per_prefill[0]
+
+
+def phase_serve_crosscheck(cfg, params, seed: int):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import init_cache
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    b, s = 2, 300  # ragged against the kernel's 64-row tiles
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda")
+    before = fk.launches
+    flash = make_prefill_step(cfg32, use_flash=True)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    if fk.launches - before != cfg.num_layers:
+        raise AssertionError("f32 prefill did not run K2 in every layer")
+    with plain_flash():
+        plain = make_prefill_step(cfg32, use_flash=True)(
+            params, {"tokens": tokens})
+    dense = make_prefill_step(cfg32)(params, {"tokens": tokens})
+    err_plain = (flash - plain).abs().max().item()
+    err_dense = (flash - dense).abs().max().item()
+
+    cache = init_cache(cfg32, b, s, device="cuda")
+    step = make_decode_step(cfg32)
+    for t in range(s):
+        pos = torch.full((b,), t, dtype=torch.long, device="cuda")
+        logits, cache = step(params, tokens[:, t:t + 1], pos, cache)
+    err_decode = (flash[:, -1] - logits[:, -1]).abs().max().item()
+    torch.cuda.synchronize()
+    for what, err in (("plain version", err_plain),
+                      ("non-flash path", err_dense),
+                      ("decode route", err_decode)):
+        if not err <= SERVE_TOL:
+            raise AssertionError(f"f32 prefill with K2 vs {what}: max abs "
+                                 f"err {err} > {SERVE_TOL}")
+    emit("serve_crosscheck", dtype="float32", batch=[b, s],
+         logits_abs_max=flash.abs().max().item(), atol=SERVE_TOL,
+         k2_vs_plain_max_abs_err=err_plain,
+         k2_vs_nonflash_max_abs_err=err_dense,
+         prefill_last_vs_decode_route_max_abs_err=err_decode)
+
+
+def phase_flash_timing(seed: int, serve_launches: int, per_prefill: int):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    b, h, kvh, s, hd = 4, 16, 16, 4096, 128  # olmo-1b's prefill call
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    q, k, v = flash_inputs(gen, b, h, kvh, s, hd, dtype)
+    kw = dict(scale=hd ** -0.5)
+    got = fk.flash_attention_cuda(q, k, v, **kw)
+    want = fk.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    max_err = (got.float() - want.float()).abs().max().item()
+    ms = cuda_ms(lambda: fk.flash_attention_cuda(q, k, v, **kw), 5)
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    ms_f32 = cuda_ms(lambda: fk.flash_attention_cuda(q32, k32, v32, **kw), 5)
+    plain_ms = cuda_ms(lambda: fk.flash_attention_plain(q, k, v, **kw), 2)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True, scale=kw["scale"]), 5)
+    bound_ms, bound_by, nbytes, flops = flash_bound(b, h, kvh, s, hd, dtype)
+    entry = {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
+        "launches": serve_launches,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        "shape": [b, h, kvh, s, hd],
+        "dtype": "bfloat16",
+        "launches_per_prefill": per_prefill,
+        "bytes_per_call": nbytes,
+        "flops_per_call": flops,
+        "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+        "ms_float32_inputs": ms_f32,
+    }
+    emit("flash_timing", **entry)
+    return entry
+
+
+def run_phase(name: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit("phase_seconds", of=name, seconds=time.perf_counter() - t0)
+    return out
+
+
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the serving path's weights and inputs")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "checks the port on a CUDA GPU", file=sys.stderr)
@@ -462,13 +784,21 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    card = phase_environment()
-    phase_kernel_vs_plain()
-    main_launches = phase_main_path()
-    phase_wide_rows()
-    kernel = phase_kernel_timing(main_launches)
+    card = run_phase("environment", phase_environment)
+    run_phase("kernel_vs_plain", phase_kernel_vs_plain)
+    main_launches = run_phase("main_path", phase_main_path)
+    run_phase("wide_rows", phase_wide_rows)
+    k1 = run_phase("kernel_timing", phase_kernel_timing, main_launches)
+    run_phase("flash_kernel_vs_plain", phase_flash_kernel_vs_plain, args.seed)
+    cfg, params, serve_launches, per_prefill = run_phase(
+        "serve_main_path", phase_serve_main_path, args.seed)
+    run_phase("serve_crosscheck", phase_serve_crosscheck, cfg, params,
+              args.seed)
+    del params
+    k2 = run_phase("flash_timing", phase_flash_timing, args.seed,
+                   serve_launches, per_prefill)
     emit("done", total_s=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

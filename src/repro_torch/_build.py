@@ -1,6 +1,8 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
+Every kernel of the port is one ``csrc/<name>.cu`` file beside the module
+that wraps it, listed in :data:`KERNELS` with the flags it needs beyond
+the common ones.  Each exposes a plain C interface and is compiled on
 first use into ``build/repro_torch/lib<name>-<hash>.so`` at the root of
 the checkout (git-ignored).  The file name carries a hash of the source
 and the flags, so an edited source is rebuilt and never mixed up with a
@@ -16,17 +18,26 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+PKG = Path(__file__).resolve().parent
+BUILD_DIR = PKG.parents[1] / "build" / "repro_torch"
 
-NVCC_FLAGS = (
+COMMON_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
+    "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+#: kernel name -> (source, relative to the package; flags beyond
+#: :data:`COMMON_FLAGS`).  The water-fill keeps products out of FMAs so it
+#: agrees bitwise with its plain version.
+KERNELS: dict[str, tuple[str, tuple[str, ...]]] = {
+    "waterfill": ("accel/csrc/waterfill.cu", ("-fmad=false",)),
+    "flash_attention": ("kernels/flash_attention/csrc/flash_attention.cu", ()),
+}
 
 #: name -> loaded library (one per source per process).
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -48,28 +59,34 @@ def _nvcc() -> str:
     )
 
 
+def _source_and_flags(name: str) -> tuple[Path, tuple[str, ...]]:
+    rel, extra = KERNELS[name]
+    return PKG / rel, COMMON_FLAGS + extra
+
+
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src, flags = _source_and_flags(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
+    """Compile kernel ``name`` unless an up-to-date library exists."""
     out = lib_path(name)
     if out.exists():
         BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "", "path": str(out)})
         return out
+    src, flags = _source_and_flags(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
+            f"nvcc failed for {src.name} (rc {proc.returncode}):\n"
             f"{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
@@ -79,8 +96,15 @@ def build(name: str) -> Path:
     return out
 
 
+def build_all() -> list[Path]:
+    """Build every kernel of :data:`KERNELS`, one ``nvcc`` each, all
+    started together."""
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        return list(pool.map(build, KERNELS))
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of kernel ``name``, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))

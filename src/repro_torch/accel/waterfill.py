@@ -154,7 +154,7 @@ def water_fill_reference(caps, ws, slots, live) -> torch.Tensor:
 @functools.lru_cache(maxsize=1)
 def _kernel():
     """The C entry point of ``csrc/waterfill.cu``, built on first use."""
-    from repro_torch.accel import _build
+    from repro_torch import _build
 
     fn = _build.load("waterfill").repro_waterfill_f64
     # caps, ws, slots, live, out, rows, width, stream

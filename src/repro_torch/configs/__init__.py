@@ -1,0 +1,78 @@
+"""Architecture registry of the port: ``get_config(name)`` /
+``get_smoke(name)`` for the architectures ported so far (``ARCHS``).
+
+The names are the reference's (``repro.configs``), dashed public ids
+included.  An architecture of the reference that is not ported yet raises
+and names the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (
+    SHAPES,
+    ModelConfig,
+    ShapeConfig,
+    reduced,
+    shape_applicable,
+)
+
+ARCHS = ["olmo_1b", "starcoder2_3b"]
+
+_ALIASES = {
+    "olmo-1b": "olmo_1b",
+    "command-r-35b": "command_r_35b",
+    "gemma2-2b": "gemma2_2b",
+    "starcoder2-3b": "starcoder2_3b",
+    "llava-next-34b": "llava_next_34b",
+    "rwkv6-1.6b": "rwkv6_1b6",
+    "granite-moe-3b-a800m": "granite_moe_3b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b",
+    "whisper-base": "whisper_base",
+    "zamba2-2.7b": "zamba2_2b7",
+}
+
+#: Architectures of the reference not ported yet -> the ROADMAP item.
+_NOT_PORTED = {
+    "rwkv6_1b6": "ROADMAP Queue 1 item 1 (rwkv6, kernel K3)",
+    "zamba2_2b7": "ROADMAP Queue 1 item 2 (zamba2, kernel K4)",
+    "command_r_35b": "ROADMAP Queue 1 item 7 (other model families)",
+    "gemma2_2b": "ROADMAP Queue 1 item 7 (gemma2's softcap and "
+                 "local/global layers)",
+    "llava_next_34b": "ROADMAP Queue 1 item 7 (vlm family)",
+    "granite_moe_3b": "ROADMAP Queue 1 item 7 (moe family)",
+    "llama4_scout_17b": "ROADMAP Queue 1 item 7 (moe family)",
+    "whisper_base": "ROADMAP Queue 1 item 7 (encdec family)",
+}
+
+
+def _module(name: str):
+    mod = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
+    if mod in _NOT_PORTED:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet: {_NOT_PORTED[mod]}"
+        )
+    if mod not in ARCHS:
+        raise KeyError(f"unknown architecture {name!r}; ported: {ARCHS}")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke(name: str) -> ModelConfig:
+    return _module(name).SMOKE
+
+
+__all__ = [
+    "ARCHS",
+    "SHAPES",
+    "ModelConfig",
+    "ShapeConfig",
+    "get_config",
+    "get_smoke",
+    "reduced",
+    "shape_applicable",
+]

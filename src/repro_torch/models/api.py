@@ -1,0 +1,55 @@
+"""Public model API of the port (``repro/models/api.py``): one entry point
+per model operation.  The serving engine goes through these.  Only the
+dense family is ported: every other family (encdec included) raises in
+:mod:`.transformer` and names the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as T
+from repro_torch.models.params import ParamTree
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator | None = None,
+               device: str | torch.device = "cuda") -> ParamTree:
+    """Random parameters drawn from ``generator`` (a seeded
+    ``torch.Generator`` on ``device``; seed 0 when omitted)."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator lies on {generator.device}, params are "
+                         f"asked for on {dev}")
+    return ParamTree(T.init_lm(cfg, generator))
+
+
+def forward(
+    cfg: ModelConfig,
+    params,
+    batch: dict,
+    *,
+    use_flash: bool = False,
+    unembed_last_only: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prefill forward.  Returns (logits, aux_loss)."""
+    return T.lm_forward(cfg, params, batch, use_flash=use_flash,
+                        unembed_last_only=unembed_last_only)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device: str | torch.device = "cuda") -> dict:
+    return T.init_lm_cache(cfg, batch, max_seq, resolve_device(device))
+
+
+def decode_step(
+    cfg: ModelConfig,
+    params,
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    cache: dict,
+) -> tuple[torch.Tensor, dict]:
+    return T.lm_decode(cfg, params, tokens, positions, cache)

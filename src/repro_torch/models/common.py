@@ -1,0 +1,187 @@
+"""Shared model components: norms, RoPE, MLPs, initializers, softcaps
+(the port's copy of ``repro/models/common.py``).
+
+Parameters are nested dicts of tensors under the reference's names (or
+the :class:`~repro_torch.models.params.ParamTree` module that holds them),
+and every function takes ``(cfg, params, inputs)``.  Master parameters
+are kept in ``cfg.param_dtype`` (fp32) and cast to the activation dtype
+at each use, as in the reference.  Initializers draw from a seeded
+``torch.Generator``; they give other numbers than ``jax.random`` from the
+same seed, so the tests carry the reference's parameters across instead
+(:func:`repro_torch.models.params.from_reference`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, shape, in_axis_size: int,
+               dtype: str) -> torch.Tensor:
+    """Truncated-normal fan-in init (the common LM choice)."""
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (t * (1.0 / math.sqrt(in_axis_size))).to(getattr(torch, dtype))
+
+
+def embed_init(gen: torch.Generator, shape, dtype: str) -> torch.Tensor:
+    t = torch.randn(shape, generator=gen, device=gen.device)
+    return (t * 0.02).to(getattr(torch, dtype))
+
+
+def _full(shape, value: float, dtype: str, device) -> torch.Tensor:
+    return torch.full(shape, value, dtype=getattr(torch, dtype), device=device)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def init_norm(cfg: ModelConfig, device, dim: int | None = None,
+              layers: int | None = None) -> dict:
+    """Norm parameters; ``layers`` stacks a leading layer axis."""
+    if cfg.non_parametric_norm:
+        return {}
+    d = dim or cfg.d_model
+    shape = (d,) if layers is None else (layers, d)
+    p = {"scale": _full(shape, 1.0, cfg.param_dtype, device)}
+    if cfg.norm == "layernorm" and cfg.use_bias:
+        p["bias"] = _full(shape, 0.0, cfg.param_dtype, device)
+    return p
+
+
+def apply_norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """RMSNorm / LayerNorm, optionally non-parametric (olmo-style)."""
+    dtype = x.dtype
+    x = x.float()
+    if cfg.norm == "rmsnorm":
+        var = x.square().mean(dim=-1, keepdim=True)
+        x = x * torch.rsqrt(var + cfg.norm_eps)
+    else:
+        mu = x.mean(dim=-1, keepdim=True)
+        # jnp.var is the biased (population) variance.
+        var = x.var(dim=-1, keepdim=True, correction=0)
+        x = (x - mu) * torch.rsqrt(var + cfg.norm_eps)
+    if p:
+        x = x * p["scale"].float()
+        if "bias" in p:
+            x = x + p["bias"].float()
+    return x.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(cfg: ModelConfig, positions: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for given integer positions, shape (..., head_dim/2)."""
+    hd = cfg.head_size
+    exps = torch.arange(0, hd, 2, dtype=torch.float32,
+                        device=positions.device) / hd
+    inv = 1.0 / (cfg.rope_theta ** exps)
+    ang = positions.float()[..., None] * inv  # (..., hd/2)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); cos/sin: (..., seq, head_dim/2).
+    Rotates the two halves of the head dim (not interleaved pairs)."""
+    x1, x2 = x.chunk(2, dim=-1)
+    cos = cos[..., None, :]  # broadcast over heads
+    sin = sin[..., None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Softcap (gemma2)
+# ---------------------------------------------------------------------------
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (dense FFN)
+# ---------------------------------------------------------------------------
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_ff: int | None = None,
+             *, layers: int | None = None) -> dict:
+    """Gated (SwiGLU/GeGLU) or plain 2-layer MLP.  ``layers`` stacks a
+    leading layer axis."""
+    d = cfg.d_model
+    dff = d_ff or cfg.d_ff
+    pref = () if layers is None else (layers,)
+    p = {"wi": dense_init(gen, (*pref, d, dff), d, cfg.param_dtype)}
+    if cfg.act.endswith("_glu"):
+        p["wg"] = dense_init(gen, (*pref, d, dff), d, cfg.param_dtype)
+    p["wo"] = dense_init(gen, (*pref, dff, d), dff, cfg.param_dtype)
+    if cfg.use_bias:
+        p["bi"] = _full((*pref, dff), 0.0, cfg.param_dtype, gen.device)
+        p["bo"] = _full((*pref, d), 0.0, cfg.param_dtype, gen.device)
+    return p
+
+
+def _act_fn(name: str):
+    if name.startswith("silu"):
+        return F.silu
+    if name.startswith("gelu"):
+        # jax.nn.gelu defaults to the tanh approximation.
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu_sq":
+        return lambda x: F.relu(x).square()
+    raise ValueError(name)
+
+
+def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    dtype = x.dtype
+    act = _act_fn(cfg.act)
+    h = x @ p["wi"].to(dtype)
+    if "bi" in p:
+        h = h + p["bi"].to(dtype)
+    h = act(h)
+    if "wg" in p:
+        h = h * (x @ p["wg"].to(dtype))
+    out = h @ p["wo"].to(dtype)
+    if "bo" in p:
+        out = out + p["bo"].to(dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+def init_embed(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    v = cfg.padded_vocab
+    p = {"embedding": embed_init(gen, (v, cfg.d_model), cfg.param_dtype)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(gen, (cfg.d_model, v), cfg.d_model,
+                                  cfg.param_dtype)
+    return p
+
+
+def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
+    x = p["embedding"][tokens].to(cfg.activation_dtype())
+    # gemma-style sqrt(d) scaling by the factor rounded to the activation
+    # dtype, as the reference multiplies by it.
+    scale = torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
+    return x * scale
+
+
+def unembed(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    w = p["unembed"] if "unembed" in p else p["embedding"].T
+    logits = x @ w.to(x.dtype)
+    logits = softcap(logits, cfg.final_softcap)
+    if cfg.vocab_pad:
+        # Mask padded vocab entries out of every softmax/argmax.
+        valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
+        logits = torch.where(valid, logits, -1e30)
+    return logits

@@ -1,0 +1,109 @@
+"""The port's kernels on a card (marker ``cuda``; every test skips
+without a CUDA device).
+
+This file imports neither JAX nor the reference, so it runs on a GPU host
+that has only the port's dependencies:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+* K2 (flash attention) against its plain version on the shapes of
+  tests/test_kernels.py, f32 at atol=rtol=2e-5 and bf16 at atol 2e-2
+  (the plain version is held to the reference on the CPU in
+  tests/test_torch_flash_attention.py), with bitwise-equal reruns and the
+  launch counter; windows 16/48/100 with strided (transposed) inputs; a
+  causal call with more queries than keys;
+* the serving prefill with K2 against the non-flash path, f32, 1e-4.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.kernels.flash_attention import kernel as K
+from repro_torch.models import init_model
+from repro_torch.serve import make_prefill_step
+
+SHAPES = {  # b, h, kvh, sq, skv, hd, block_q, block_kv
+    "mha": (1, 2, 2, 64, 64, 32, 32, 32),
+    "gqa": (2, 4, 2, 128, 128, 64, 64, 32),
+    "mqa": (1, 8, 1, 128, 128, 32, 32, 64),
+    "3-block": (2, 2, 2, 96, 96, 32, 32, 32),
+    "ragged-q": (1, 2, 2, 80, 80, 32, 32, 32),
+    "sq>skv": (1, 4, 2, 80, 48, 128, 32, 32),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _qkv(seed, b, h, kvh, sq, skv, hd, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(device=device, dtype=dtype)
+            for shape in ((b, h, sq, hd), (b, kvh, skv, hd), (b, kvh, skv, hd))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_kernel_matches_plain_version_on_card(cuda, name, dtype, atol):
+    b, h, kvh, sq, skv, hd, bq, bkv = SHAPES[name]
+    q, k, v = _qkv(7, b, h, kvh, sq, skv, hd, cuda, dtype)
+    kw = dict(scale=hd**-0.5, block_q=bq, block_kv=bkv)
+    before = K.launches
+    got = K.flash_attention_cuda(q, k, v, **kw)
+    again = K.flash_attention_cuda(q, k, v, **kw)
+    want = K.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert K.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=atol if dtype == torch.float32 else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [16, 48, 100])
+def test_kernel_window_and_strided_inputs_on_card(cuda, window):
+    q, k, v = _qkv(8, 2, 4, 2, 128, 128, 64, cuda)
+    kw = dict(scale=0.125, window=window, block_q=32, block_kv=32)
+    want = K.flash_attention_plain(q, k, v, **kw)
+    got = K.flash_attention_cuda(q, k, v, **kw)
+    # The same tensors as transposed views of (b, s, h, hd) storage.
+    qs, ks, vs = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v))
+    strided = K.flash_attention_cuda(qs, ks, vs, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    assert torch.equal(got, strided)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(9, 1, 2, 2, 64, 64, 48, cuda)
+    with pytest.raises(ValueError, match="head dim 48"):
+        K.flash_attention_cuda(q, k, v, scale=0.1)
+    q, k, v = _qkv(9, 1, 2, 2, 64, 64, 32, cuda, torch.float16)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        K.flash_attention_cuda(q, k, v, scale=0.1)
+
+
+@pytest.mark.cuda
+def test_prefill_with_kernel_matches_plain_on_card(cuda):
+    cfg = dataclasses.replace(configs.get_smoke("olmo_1b"), dtype="float32",
+                              head_dim=32)
+    params = init_model(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    tok = torch.from_numpy(
+        np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 80))).to(cuda)
+    before = K.launches
+    got = make_prefill_step(cfg, use_flash=True)(params, {"tokens": tok})
+    assert K.launches == before + cfg.num_layers
+    want = make_prefill_step(cfg)(params, {"tokens": tok})
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
