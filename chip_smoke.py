@@ -39,8 +39,30 @@ script exits non-zero:
    prefill logits against the decode-cache route's (atol 1e-3);
 9. K2 timing at the olmo shape beside its bound, the plain version and
    ``F.scaled_dot_product_attention`` (timed only, never on the path);
-10. the ``{"kernels": [...]}`` line, the card's name and power limit, and
-    the final ``{"ok": true, ...}`` line.
+10. the RWKV6 WKV scan kernel (K3) against its plain PyTorch version on
+    the card, f32 output and state at atol = rtol = 1e-4 and bf16 r/k/v
+    (f32 w) at atol = rtol = 2e-2, on the shapes of tests/test_kernels.py,
+    strong decays at chunk 16 and rwkv6-1.6b's (4, 32, 4096, 64) at
+    chunk 64, with bitwise reruns and the launch counter;
+11. the rwkv6 serving path, after olmo-1b's weights are freed: rwkv6-1.6b
+    at its published widths (24 layers, d_model 2048, 32 heads of 64,
+    d_ff 7168, vocab 65536, untied head; 1,583,941,632 parameters, random
+    from ``--seed``) through ``make_prefill_step(use_scan_kernel=True,
+    last_token_only=True)`` on 4 x 4096 prompt tokens in bf16, cold and
+    warm (24 K3 launches per prefill), a profile of one prefill, then
+    ``greedy_generate`` for 4 requests of 64 prompt and 32 new tokens;
+12. rwkv6 cross-checks in f32 on the same weights: 1 x 1024 prefill
+    logits with K3 against the plain version and the ``rwkv_scan_chunked``
+    route, and the last prompt position's prefill logits against the
+    decode route's on 200 tokens (atol 1e-3 each);
+13. K3 timing at the rwkv6 shape beside its bound and the plain version
+    (no single PyTorch call computes the scan, so no library time);
+14. the ``{"kernels": [...]}`` line (K1, K2, K3), the card's name and
+    power limit, and the final ``{"ok": true, ...}`` line.
+
+Each main path (the accel matrix, the wide rows, olmo-1b serving, rwkv6
+serving) runs with every kernel's launch count set to 0 just before it
+and read just after.
 """
 
 from __future__ import annotations
@@ -128,6 +150,15 @@ def graph_ms(fn, replays: int = 10) -> float:
 
 def bits(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.int64)
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0, just before a main path."""
+    from repro_torch.accel import waterfill as wf
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rwkv6 import kernel as rk
+
+    wf.launches = fk.launches = rk.launches = 0
 
 
 def drop_wall(results: list[dict]) -> list[dict]:
@@ -273,7 +304,7 @@ def phase_main_path():
         synthesize_cell(s)
     synth_s = time.perf_counter() - t0
 
-    wf.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     cold = run_cells_accel(specs, device="cuda")
     torch.cuda.synchronize()
@@ -349,7 +380,7 @@ def phase_wide_rows():
         })
         for seed in range(4)
     ]
-    wf.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = run_cells_accel(specs, device="cuda")
     torch.cuda.synchronize()
@@ -562,9 +593,10 @@ def plain_flash():
         ops.flash_attention_bhsd = fk.flash_attention_bhsd
 
 
-def profile_device(fn, steps: int = 1):
-    """Device time by kernel over ``steps`` calls of ``fn()``, and the
-    device's busy share of their wall."""
+def profile_device(fn, steps: int, kernel: str, share: str):
+    """Device time by kernel over ``steps`` calls of ``fn()``, the
+    device's busy share of their wall, and (under ``share``) the share of
+    device time of the kernels whose name holds ``kernel``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -577,8 +609,8 @@ def profile_device(fn, steps: int = 1):
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(ev.self_device_time_total for ev in kernels)
-    flash_us = sum(ev.self_device_time_total for ev in kernels
-                   if "flash_fwd" in ev.key)
+    kernel_us = sum(ev.self_device_time_total for ev in kernels
+                    if kernel in ev.key)
     measured = total_us > 0
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:6]
     return {
@@ -588,17 +620,26 @@ def profile_device(fn, steps: int = 1):
         else "not measured",
         "device_busy_share": total_us / 1e6 / wall if measured
         else "not measured",
-        "flash_share_of_device": flash_us / total_us if measured
-        else "not measured",
+        share: kernel_us / total_us if measured else "not measured",
         "kernel_launches_per_step": sum(ev.count for ev in kernels) / steps,
         "top_kernels_us": [[ev.key[:70], ev.count, ev.self_device_time_total]
                            for ev in top],
     }
 
 
-def phase_serve_main_path(seed: int):
+def serve_main_path(phase: str, arch: str, seed: int, counter, tag: str,
+                    kernel: str, **prefill_kw):
+    """Serve ``arch`` at its published widths (bf16 activations, random
+    weights from ``seed``): a 4 x 4096 prefill through
+    ``make_prefill_step(**prefill_kw, last_token_only=True)``, cold and
+    warm, then ``greedy_generate`` for 4 requests of 64 prompt and 32 new
+    tokens, with every launch count set to 0 just before and
+    ``counter.launches`` read just after; the prefill must launch the
+    kernel once per layer.  Then profiles of a prefill and a decode step
+    (``kernel`` names the kernel whose share is reported as
+    ``<tag>_share_of_device``).  Emits ``phase`` and returns (cfg,
+    params, launches, launches per prefill)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.models import init_cache, init_model
     from repro_torch.serve import (
         greedy_generate,
@@ -606,7 +647,7 @@ def phase_serve_main_path(seed: int):
         make_prefill_step,
     )
 
-    cfg = get_config("olmo_1b")  # published widths, bf16 activations
+    cfg = get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
     params = init_model(cfg, gen, device="cuda")
@@ -618,56 +659,67 @@ def phase_serve_main_path(seed: int):
                            device="cuda")
     prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
                             device="cuda")
-    prefill = make_prefill_step(cfg, use_flash=True, last_token_only=True)
+    prefill = make_prefill_step(cfg, **prefill_kw, last_token_only=True)
 
     torch.cuda.reset_peak_memory_stats()
-    fk.launches = 0
+    reset_counts()
     walls, per_prefill = [], []
     for _ in range(2):  # cold, warm
-        before = fk.launches
+        before = counter.launches
         t0 = time.perf_counter()
         logits = prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        per_prefill.append(fk.launches - before)
+        per_prefill.append(counter.launches - before)
     t0 = time.perf_counter()
     out = greedy_generate(cfg, params, prompts, 32)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = fk.launches
+    launches = counter.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     if per_prefill != [cfg.num_layers] * 2:
-        raise AssertionError(f"K2 launches per prefill {per_prefill}, "
-                             f"expected {cfg.num_layers}")
+        raise AssertionError(f"{tag.upper()} launches per prefill "
+                             f"{per_prefill}, expected {cfg.num_layers}")
     if logits.shape != (b, 1, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
     if out.shape != (4, 96) or not torch.equal(out[:, :64], prompts) or \
             int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad greedy output {tuple(out.shape)}")
-    prof_prefill = profile_device(lambda: prefill(params, {"tokens": tokens}))
+    share = f"{tag}_share_of_device"
+    prof_prefill = profile_device(lambda: prefill(params, {"tokens": tokens}),
+                                  steps=1, kernel=kernel, share=share)
     # Decode steps of the greedy loop's shape: 4 rows at position 63 of a
-    # 96-slot cache.
+    # 96-slot cache (the ssm family's state does not grow).
     step = make_decode_step(cfg)
     cache = init_cache(cfg, 4, 96, device="cuda")
     pos = torch.full((4,), 63, dtype=torch.long, device="cuda")
     prof_decode = profile_device(
-        lambda: step(params, prompts[:, -1:], pos, cache), steps=8)
-    emit("serve_main_path", model=cfg.name, params=n_params,
+        lambda: step(params, prompts[:, -1:], pos, cache), steps=8,
+        kernel=kernel, share=share)
+    emit(phase, model=cfg.name, params=n_params,
+         param_count_analytic=cfg.param_count(),
          param_dtype=cfg.param_dtype, dtype=cfg.dtype, init_s=init_s,
          prefill_batch=[b, s], prefill_cold_s=walls[0],
          prefill_warm_s=walls[1],
          prefill_cold_tokens_per_s=b * s / walls[0],
          prefill_warm_tokens_per_s=b * s / walls[1],
-         k2_launches_per_prefill=per_prefill,
+         **{f"{tag}_launches_per_prefill": per_prefill},
          generate_requests=4, generate_prompt=64, generate_new=32,
          generate_s=gen_s, decode_steps=64 + 32 - 1,
          decode_new_tokens_per_s=4 * 32 / gen_s,
          decode_steps_per_s=(64 + 32 - 1) / gen_s,
-         peak_memory_gb=peak_gb, k2_launches=launches,
+         peak_memory_gb=peak_gb, **{f"{tag}_launches": launches},
          profile_warm_prefill=prof_prefill, profile_decode_step=prof_decode)
     return cfg, params, launches, per_prefill[0]
+
+
+def phase_serve_main_path(seed: int):
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    return serve_main_path("serve_main_path", "olmo_1b", seed, fk, "k2",
+                           "flash_fwd", use_flash=True)
 
 
 def phase_serve_crosscheck(cfg, params, seed: int):
@@ -757,6 +809,224 @@ def phase_flash_timing(seed: int, serve_launches: int, per_prefill: int):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# The RWKV6 WKV scan (K3) and the rwkv6 serving path
+# ---------------------------------------------------------------------------
+#: (name, b, h, t, d, chunk, decay sharpness): the four shapes of
+#: tests/test_kernels.py, strong decays at chunk 16 (w down to ~1e-16),
+#: and rwkv6-1.6b's prefill call.
+RWKV_CASES = (
+    ("tiny", 1, 1, 32, 8, 16, 2.0),
+    ("3-chunk", 2, 3, 100, 16, 32, 2.0),
+    ("one-chunk", 1, 2, 64, 32, 64, 2.0),
+    ("ragged-t65", 2, 2, 65, 16, 32, 2.0),
+    ("strong-decay", 1, 2, 128, 16, 16, 0.0),
+    ("rwkv6-1.6b", 4, 32, 4096, 64, 64, 2.0),
+)
+#: dtype of r/k/v -> (atol, rtol) of K3's output against its plain
+#: version: f32 sums in another order; bf16 adds one rounding of the
+#: output, which is relative (one bf16 step is 0.25 at the outputs of
+#: 32 to 64 that the rwkv6 shape reaches).  The f32 state is held at
+#: 1e-4 abs and rel in both.
+RWKV_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+RWKV_PARAMS = 1_583_941_632  # the rwkv6-1.6b tree (param_count() says 1.342e9)
+#: f32 peak outside the tensor cores, K3's yardstick: the reference
+#: computes the chunked form in f32.
+PEAK_F32_PER_S = 67e12
+
+
+def rwkv_inputs(gen, b, h, t, d, sharpness, dtype):
+    """r, k, v (dtype), w, u, s0 (f32) as the model-layout adapter passes
+    them: (b, h, t, d) views of (b, t, h, d) tensors."""
+    def seq():
+        return torch.randn((b, t, h, d), generator=gen, device="cuda")
+    r, k, v = (seq().to(dtype).transpose(1, 2) for _ in range(3))
+    w = torch.exp(-torch.exp(seq() - sharpness)).transpose(1, 2)
+    u = 0.1 * torch.randn((h, d), generator=gen, device="cuda")
+    s0 = 0.1 * torch.randn((b, h, d, d), generator=gen, device="cuda")
+    return r, k, v, w, u, s0
+
+
+def rwkv_bound(b, h, t, d, chunk, dtype) -> tuple[float, str, int, int]:
+    """(bound_ms, bound_by, bytes, flops) of one call: r, k, v, w, u and s0
+    read once, o and the state written once; per chunk of n rows the
+    inter-chunk and state products (2 n d^2 flops each) and the scores
+    and intra-chunk products over the n (n - 1) / 2 pairs of the strictly
+    lower triangle (2 d flops per pair each)."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (b * h * t * d * (4 * esize + 4) + h * d * 4
+              + 2 * b * h * d * d * 4)
+    c = min(chunk, t)
+    rows = [c] * (t // c) + ([t % c] if t % c else [])
+    per_bh = sum(4 * n * d * d + 4 * d * (n * (n - 1) // 2) for n in rows)
+    flops = b * h * per_bh
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, flops
+    return t_ops, "operations", nbytes, flops
+
+
+def phase_rwkv6_kernel_vs_plain(seed: int):
+    from repro_torch.kernels.rwkv6 import kernel as rk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    for dtype, (atol, rtol) in RWKV_TOL.items():
+        for name, b, h, t, d, chunk, sharp in RWKV_CASES:
+            args = rwkv_inputs(gen, b, h, t, d, sharp, dtype)
+            before = rk.launches
+            got_o, got_s = rk.rwkv6_cuda(*args, chunk=chunk)
+            again_o, again_s = rk.rwkv6_cuda(*args, chunk=chunk)
+            want_o, want_s = rk.rwkv6_plain(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            if rk.launches != before + 2:
+                raise AssertionError(f"{name}: launch counter did not advance")
+            if not (torch.equal(got_o, again_o) and torch.equal(got_s, again_s)):
+                raise AssertionError(f"{name}: kernel rerun not bitwise equal")
+            if got_o.dtype != dtype or got_s.dtype != torch.float32:
+                raise AssertionError(f"{name}: output dtypes {got_o.dtype}, "
+                                     f"{got_s.dtype}")
+            diff = (got_o.float() - want_o.float()).abs()
+            err = diff.max().item()
+            diff_s = (got_s - want_s).abs()
+            err_s = diff_s.max().item()
+            if not bool((diff <= atol + rtol * want_o.float().abs()).all()):
+                raise AssertionError(
+                    f"{name} {dtype}: kernel output != plain version (max abs "
+                    f"err {err}, atol {atol}, rtol {rtol})")
+            if not bool((diff_s <= 1e-4 + 1e-4 * want_s.abs()).all()):
+                raise AssertionError(
+                    f"{name} {dtype}: kernel state != plain version (max abs "
+                    f"err {err_s}, atol = rtol = 1e-4)")
+            emit("rwkv6_kernel_vs_plain", case=name,
+                 dtype=str(dtype).replace("torch.", ""), shape=[b, h, t, d],
+                 chunk=chunk, decay_sharpness=sharp,
+                 min_w=args[3].min().item(), max_abs_err=err,
+                 state_max_abs_err=err_s, atol=atol, rtol=rtol,
+                 rerun_bitwise_equal=True)
+
+
+def phase_rwkv_serve_main_path(seed: int):
+    from repro_torch.kernels.rwkv6 import kernel as rk
+
+    out = serve_main_path("rwkv_serve_main_path", "rwkv6_1b6", seed, rk, "k3",
+                          "rwkv6_fwd", use_scan_kernel=True)
+    n_params = sum(p.numel() for p in out[1].parameters())
+    print(f"rwkv6-1.6b parameters: {n_params}", flush=True)
+    if n_params != RWKV_PARAMS:
+        raise AssertionError(f"rwkv6-1.6b tree holds {n_params} parameters, "
+                             f"expected {RWKV_PARAMS}")
+    return out
+
+
+@contextlib.contextmanager
+def plain_scan():
+    """Route the model's K3 path to K3's plain version (on the card), for
+    the cross-check against the kernel."""
+    from repro_torch.kernels.rwkv6 import kernel as rk
+    from repro_torch.kernels.rwkv6 import ops
+
+    ops.rwkv6_chunked_bhtd = rk.rwkv6_plain
+    try:
+        yield
+    finally:
+        ops.rwkv6_chunked_bhtd = rk.rwkv6_chunked_bhtd
+
+
+def phase_rwkv_serve_crosscheck(cfg, params, seed: int):
+    from repro_torch.kernels.rwkv6 import kernel as rk
+    from repro_torch.models import init_cache
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    b, s = 1, 1024
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda")
+    before = rk.launches
+    kern = make_prefill_step(cfg32, use_scan_kernel=True)(
+        params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    if rk.launches - before != cfg.num_layers:
+        raise AssertionError("f32 prefill did not run K3 in every layer")
+    with plain_scan():
+        plain = make_prefill_step(cfg32, use_scan_kernel=True)(
+            params, {"tokens": tokens})
+    chunked = make_prefill_step(cfg32)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    if rk.launches - before != cfg.num_layers:
+        raise AssertionError("the plain and chunked routes launched K3")
+    err_plain = (kern - plain).abs().max().item()
+    err_chunked = (kern - chunked).abs().max().item()
+
+    # The decode route carries the state token by token; 200 tokens are
+    # three full chunks and a ragged fourth in the prefill.
+    s_dec = 200
+    short = tokens[:, :s_dec]
+    pre = make_prefill_step(cfg32, use_scan_kernel=True, last_token_only=True)(
+        params, {"tokens": short})
+    cache = init_cache(cfg32, b, s_dec, device="cuda")
+    step = make_decode_step(cfg32)
+    for t in range(s_dec):
+        pos = torch.full((b,), t, dtype=torch.long, device="cuda")
+        logits, cache = step(params, short[:, t:t + 1], pos, cache)
+    err_decode = (pre[:, -1] - logits[:, -1]).abs().max().item()
+    torch.cuda.synchronize()
+    for what, err in (("plain version", err_plain),
+                      ("rwkv_scan_chunked route", err_chunked),
+                      ("decode route", err_decode)):
+        if not err <= SERVE_TOL:
+            raise AssertionError(f"f32 prefill with K3 vs {what}: max abs "
+                                 f"err {err} > {SERVE_TOL}")
+    emit("rwkv_serve_crosscheck", dtype="float32", batch=[b, s],
+         decode_prompt=s_dec, logits_abs_max=kern.abs().max().item(),
+         atol=SERVE_TOL, k3_vs_plain_max_abs_err=err_plain,
+         k3_vs_chunked_max_abs_err=err_chunked,
+         plain_vs_chunked_max_abs_err=(plain - chunked).abs().max().item(),
+         prefill_last_vs_decode_route_max_abs_err=err_decode)
+
+
+def phase_rwkv6_timing(seed: int, serve_launches: int, per_prefill: int):
+    from repro_torch.kernels.rwkv6 import kernel as rk
+
+    b, h, t, d, chunk = 4, 32, 4096, 64, 64  # rwkv6-1.6b's prefill call
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    args = rwkv_inputs(gen, b, h, t, d, 2.0, dtype)
+    got, _ = rk.rwkv6_cuda(*args, chunk=chunk)
+    want, _ = rk.rwkv6_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    max_err = (got.float() - want.float()).abs().max().item()
+    ms = cuda_ms(lambda: rk.rwkv6_cuda(*args, chunk=chunk), 10)
+    args32 = [x.float() for x in args[:3]] + list(args[3:])
+    ms_f32 = cuda_ms(lambda: rk.rwkv6_cuda(*args32, chunk=chunk), 10)
+    plain_ms = cuda_ms(lambda: rk.rwkv6_plain(*args, chunk=chunk), 3)
+    bound_ms, bound_by, nbytes, flops = rwkv_bound(b, h, t, d, chunk, dtype)
+    entry = {
+        "name": "rwkv6",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6/kernel.py:30",
+        "launches": serve_launches,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes the WKV scan
+        "shape": [b, h, t, d],
+        "chunk": chunk,
+        "dtype": "bfloat16",
+        "launches_per_prefill": per_prefill,
+        "bytes_per_call": nbytes,
+        "flops_per_call": flops,
+        "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+        "ms_float32_inputs": ms_f32,
+    }
+    emit("rwkv6_timing", **entry)
+    return entry
+
+
 def run_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -797,8 +1067,18 @@ def main() -> int:
     del params
     k2 = run_phase("flash_timing", phase_flash_timing, args.seed,
                    serve_launches, per_prefill)
+    torch.cuda.empty_cache()  # olmo-1b's weights are gone before rwkv6's
+    run_phase("rwkv6_kernel_vs_plain", phase_rwkv6_kernel_vs_plain, args.seed)
+    cfg, params, serve_launches, per_prefill = run_phase(
+        "rwkv_serve_main_path", phase_rwkv_serve_main_path, args.seed)
+    run_phase("rwkv_serve_crosscheck", phase_rwkv_serve_crosscheck, cfg,
+              params, args.seed)
+    del params
+    torch.cuda.empty_cache()
+    k3 = run_phase("rwkv6_timing", phase_rwkv6_timing, args.seed,
+                   serve_launches, per_prefill)
     emit("done", total_s=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -37,6 +37,7 @@ COMMON_FLAGS = (
 KERNELS: dict[str, tuple[str, tuple[str, ...]]] = {
     "waterfill": ("accel/csrc/waterfill.cu", ("-fmad=false",)),
     "flash_attention": ("kernels/flash_attention/csrc/flash_attention.cu", ()),
+    "rwkv6": ("kernels/rwkv6/csrc/rwkv6.cu", ()),
 }
 
 #: name -> loaded library (one per source per process).

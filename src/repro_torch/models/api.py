@@ -1,7 +1,8 @@
 """Public model API of the port (``repro/models/api.py``): one entry point
-per model operation.  The serving engine goes through these.  Only the
-dense family is ported: every other family (encdec included) raises in
-:mod:`.transformer` and names the ROADMAP item that ports it.
+per model operation.  The serving engine goes through these.  The dense
+and ssm (rwkv6) families are ported: every other family (encdec
+included) raises in :mod:`.transformer` and names the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -33,10 +34,16 @@ def forward(
     batch: dict,
     *,
     use_flash: bool = False,
+    use_scan_kernel: bool = False,
     unembed_last_only: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Prefill forward.  Returns (logits, aux_loss)."""
+    """Prefill forward.  Returns (logits, aux_loss).  ``use_flash`` routes
+    the dense family's causal attention to kernel K2, ``use_scan_kernel``
+    the ssm family's WKV scan to kernel K3 (the reference's
+    ``rwkv_time_mix(use_pallas=True)`` route, which its ``forward`` does
+    not expose); both default to the reference's default route."""
     return T.lm_forward(cfg, params, batch, use_flash=use_flash,
+                        use_scan_kernel=use_scan_kernel,
                         unembed_last_only=unembed_last_only)
 
 

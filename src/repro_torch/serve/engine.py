@@ -5,8 +5,10 @@ request queue.
 
 The steps run eagerly under ``torch.no_grad`` on the device the
 parameters lie on.  ``use_flash`` defaults to False as in the reference;
-with it, every causal prefill layer runs flash attention (kernel K2 on
-the card).
+with it, every causal prefill layer of the dense family runs flash
+attention (kernel K2 on the card).  ``use_scan_kernel`` (default False,
+the reference's route) runs every prefill layer's WKV scan of the ssm
+family in kernel K3.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from repro_torch.models import decode_step, forward, init_cache
 
 
 def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = False,
+                      use_scan_kernel: bool = False,
                       last_token_only: bool = False):
     """``last_token_only`` returns logits for the final position only — the
     only logits serving needs after a prefill — and skips the full
@@ -26,6 +29,7 @@ def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = False,
     @torch.no_grad()
     def prefill_step(params, batch: dict) -> torch.Tensor:
         logits, _ = forward(cfg, params, batch, use_flash=use_flash,
+                            use_scan_kernel=use_scan_kernel,
                             unembed_last_only=last_token_only)
         return logits
 

@@ -12,7 +12,16 @@ that has only the port's dependencies:
   tests/test_torch_flash_attention.py), with bitwise-equal reruns and the
   launch counter; windows 16/48/100 with strided (transposed) inputs; a
   causal call with more queries than keys;
-* the serving prefill with K2 against the non-flash path, f32, 1e-4.
+* the serving prefill with K2 against the non-flash path, f32, 1e-4;
+* K3 (the RWKV6 WKV scan) against its plain version on the shapes of
+  tests/test_kernels.py and strong decays at chunk 16, f32 output and
+  state at atol = rtol = 1e-4 and bf16 r/k/v at atol = rtol = 2e-2 (one
+  bf16 rounding of the output is relative; the plain
+  version is held to the reference on the CPU in
+  tests/test_torch_rwkv6.py), with bitwise-equal reruns and the launch
+  counter; the model layout's strided views; the refusals;
+* the rwkv6 SMOKE prefill with K3 against the chunked-scan route, f32,
+  1e-4.
 """
 
 import dataclasses
@@ -23,6 +32,8 @@ import torch
 
 from repro_torch import configs
 from repro_torch.kernels.flash_attention import kernel as K
+from repro_torch.kernels.rwkv6 import kernel as K3
+from repro_torch.kernels.rwkv6.ops import rwkv6_chunked
 from repro_torch.models import init_model
 from repro_torch.serve import make_prefill_step
 
@@ -105,5 +116,88 @@ def test_prefill_with_kernel_matches_plain_on_card(cuda):
     before = K.launches
     got = make_prefill_step(cfg, use_flash=True)(params, {"tokens": tok})
     assert K.launches == before + cfg.num_layers
+    want = make_prefill_step(cfg)(params, {"tokens": tok})
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+RWKV_SHAPES = {  # b, h, t, d, chunk, decay sharpness
+    "tiny": (1, 1, 32, 8, 16, 2.0),
+    "3-chunk": (2, 3, 100, 16, 32, 2.0),
+    "one-chunk": (1, 2, 64, 32, 64, 2.0),
+    "ragged-t65": (2, 2, 65, 16, 32, 2.0),
+    "strong-decay": (1, 2, 128, 16, 16, 0.0),
+    "short-t10": (1, 2, 10, 64, 64, 2.0),
+}
+
+
+def _rwkv(seed, b, h, t, d, sharpness, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    r, k, v = (torch.from_numpy(rng.standard_normal((b, h, t, d))
+                                .astype(np.float32)).to(device, dtype)
+               for _ in range(3))
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    w = f32(np.exp(-np.exp(rng.standard_normal((b, h, t, d)) - sharpness)))
+    return r, k, v, w, f32(0.1 * rng.standard_normal((h, d))), \
+        f32(0.1 * rng.standard_normal((b, h, d, d)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("name", list(RWKV_SHAPES))
+def test_rwkv6_kernel_matches_plain_version_on_card(cuda, name, dtype, tol):
+    b, h, t, d, chunk, sharp = RWKV_SHAPES[name]
+    args = _rwkv(10, b, h, t, d, sharp, cuda, dtype)
+    before = K3.launches
+    got_o, got_s = K3.rwkv6_cuda(*args, chunk=chunk)
+    again_o, again_s = K3.rwkv6_cuda(*args, chunk=chunk)
+    want_o, want_s = K3.rwkv6_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K3.launches == before + 2
+    assert torch.equal(got_o, again_o) and torch.equal(got_s, again_s)
+    assert got_o.dtype == dtype and got_s.dtype == torch.float32
+    torch.testing.assert_close(got_o.float(), want_o.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_reads_model_layout_views_on_card(cuda):
+    """The adapter's (b, h, t, d) views of (b, t, h, d) storage: the same
+    bits as contiguous inputs, output in (b, t, h, d)."""
+    r, k, v, w, u, s0 = _rwkv(11, 2, 4, 70, 64, 2.0, cuda)
+    want_o, want_s = K3.rwkv6_cuda(r, k, v, w, u, s0)
+    bthd = [x.transpose(1, 2).contiguous() for x in (r, k, v, w)]
+    got_o, got_s = rwkv6_chunked(*bthd, u, s0)
+    torch.cuda.synchronize()
+    assert got_o.is_contiguous() and got_o.shape == (2, 70, 4, 64)
+    assert torch.equal(got_o, want_o.transpose(1, 2)) and torch.equal(got_s, want_s)
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_refuses_what_it_does_not_take(cuda):
+    args = _rwkv(12, 1, 2, 40, 48, 2.0, cuda)
+    with pytest.raises(ValueError, match="dk = dv"):
+        K3.rwkv6_cuda(*args)
+    r, k, v, w, u, s0 = _rwkv(12, 1, 2, 100, 16, 2.0, cuda)
+    with pytest.raises(ValueError, match="chunk length 48"):
+        K3.rwkv6_cuda(r, k, v, w, u, s0, chunk=48)
+    with pytest.raises(TypeError, match="f32 w"):
+        K3.rwkv6_cuda(r, k, v, w.to(torch.bfloat16), u, s0)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        K3.rwkv6_cuda(*(x.half() for x in (r, k, v)), w, u, s0)
+    with pytest.raises(ValueError, match="different devices"):
+        K3.rwkv6_chunked_bhtd(r, k.cpu(), v, w, u, s0)
+
+
+@pytest.mark.cuda
+def test_rwkv_prefill_with_kernel_matches_chunked_route_on_card(cuda):
+    cfg = dataclasses.replace(configs.get_smoke("rwkv6_1b6"), dtype="float32")
+    params = init_model(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    tok = torch.from_numpy(
+        np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 150))).to(cuda)
+    before = K3.launches
+    got = make_prefill_step(cfg, use_scan_kernel=True)(params, {"tokens": tok})
+    assert K3.launches == before + cfg.num_layers
     want = make_prefill_step(cfg)(params, {"tokens": tok})
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)

@@ -94,8 +94,13 @@ def test_configs_equal_reference(name):
 def test_unported_architectures_and_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
         configs.get_config("gemma2-2b")
-    with pytest.raises(NotImplementedError, match="item 1 .rwkv6, kernel K3"):
-        configs.get_smoke("rwkv6-1.6b")
+    with pytest.raises(NotImplementedError, match="item 2 .zamba2, kernel K4"):
+        configs.get_smoke("zamba2-2.7b")
+    # rwkv6 and the ssm family are ported.
+    assert configs.get_smoke("rwkv6-1.6b").family == "ssm"
+    ssm = configs.get_smoke("rwkv6_1b6")
+    assert set(init_cache(ssm, 1, 8, device="cpu")) == {"S", "shift",
+                                                        "cmix_shift"}
     with pytest.raises(KeyError):
         configs.get_config("nope")
     moe = dataclasses.replace(configs.get_smoke("olmo_1b"), family="moe")
