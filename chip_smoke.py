@@ -25,9 +25,10 @@ script exits non-zero:
    the work, and a short profile of the hfsp step;
 6. the flash attention kernel (K2) against its plain PyTorch version on
    the card, f32 (atol = rtol = 2e-5) and bf16 (atol 2e-2), on the shapes
-   of tests/test_kernels.py, three windows, olmo-1b's (4, 16, 4096, 128)
-   and starcoder2-3b's GQA (1, 24 -> 2, 2048, 128), with bitwise reruns
-   and the launch counter;
+   of tests/test_kernels.py, three windows, olmo-1b's (4, 16, 4096, 128),
+   starcoder2-3b's GQA (1, 24 -> 2, 2048, 128) and head dim 80 (a small
+   GQA case and zamba2-2.7b's (4, 32, 4096, 80)), with bitwise reruns and
+   the launch counter;
 7. the serving path: olmo-1b at its published widths (16 layers, d_model
    2048, vocab 50304; random weights from ``--seed``) through
    ``make_prefill_step(use_flash=True, last_token_only=True)`` on 4 x 4096
@@ -57,12 +58,37 @@ script exits non-zero:
     decode route's on 200 tokens (atol 1e-3 each);
 13. K3 timing at the rwkv6 shape beside its bound and the plain version
     (no single PyTorch call computes the scan, so no library time);
-14. the ``{"kernels": [...]}`` line (K1, K2, K3), the card's name and
+14. the Mamba2 SSD scan kernel (K4) against its plain PyTorch version on
+    the card, f32 y and state at atol = rtol = 1e-4 and bf16 x/B/C (f32
+    dt/a) at atol = rtol = 2e-2, on the shapes of tests/test_kernels.py,
+    strong decays at chunk 16 and zamba2-2.7b's (4, 80, 4096, 64, 64) at
+    chunk 64 (with the model's decays, and with weaker ones held at 1e-4
+    of y's scale), with bitwise reruns and the launch counter;
+15. the zamba2 serving path, after rwkv6's weights are freed: zamba2-2.7b
+    at its published widths (54 mamba2 layers, d_model 2560, ssm_state 64,
+    heads of 64; one shared attention+MLP block of 32 heads of 80 and
+    d_ff 10240 after every 6th layer; vocab 32000, tied embeddings;
+    2,340,750,240 parameters, random from ``--seed``) through
+    ``make_prefill_step(use_flash=True, use_scan_kernel=True,
+    last_token_only=True)`` on 4 x 4096 prompt tokens in bf16, cold and
+    warm (54 K4 and 9 K2 launches per prefill), profiles of a prefill and
+    a decode step, then ``greedy_generate`` for 4 requests of 64 prompt
+    and 32 new tokens;
+16. zamba2 cross-checks in f32 on the same weights: 1 x 1024 prefill
+    logits with K4 and K2 against K4's plain version, the
+    ``ssd_scan_chunked`` route and K2's plain version, and the last prompt
+    position's prefill logits against the decode route's on 200 tokens
+    (atol 1e-3 each);
+17. K4 timing at the zamba2 shape beside its bound and the plain version
+    (no single PyTorch call computes the scan, so no library time), and
+    K2 at zamba2's head dim 80 beside its bound, its plain version and
+    ``F.scaled_dot_product_attention``;
+18. the ``{"kernels": [...]}`` line (K1, K2, K3, K4), the card's name and
     power limit, and the final ``{"ok": true, ...}`` line.
 
 Each main path (the accel matrix, the wide rows, olmo-1b serving, rwkv6
-serving) runs with every kernel's launch count set to 0 just before it
-and read just after.
+serving, zamba2 serving) runs with every kernel's launch count set to 0
+just before it and read just after.
 """
 
 from __future__ import annotations
@@ -157,8 +183,9 @@ def reset_counts() -> None:
     from repro_torch.accel import waterfill as wf
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.rwkv6 import kernel as rk
+    from repro_torch.kernels.ssd import kernel as sk
 
-    wf.launches = fk.launches = rk.launches = 0
+    wf.launches = fk.launches = rk.launches = sk.launches = 0
 
 
 def drop_wall(results: list[dict]) -> list[dict]:
@@ -519,6 +546,8 @@ FLASH_CASES = (
     ("window100", 1, 2, 2, 128, 32, 32, 32, 100),
     ("olmo-1b", 4, 16, 16, 4096, 128, 512, 512, None),
     ("starcoder2-3b", 1, 24, 2, 2048, 128, 512, 512, None),
+    ("hd80", 1, 4, 2, 96, 80, 32, 32, None),
+    ("zamba2-2.7b", 4, 32, 32, 4096, 80, 512, 512, None),
 )
 #: dtype -> (atol, rtol) of K2 against its plain version: f32 sums in
 #: another order; bf16 adds one rounding of the output.
@@ -580,23 +609,24 @@ def phase_flash_kernel_vs_plain(seed: int):
 
 
 @contextlib.contextmanager
-def plain_flash():
-    """Route the model's flash path to K2's plain version (on the card),
-    for the cross-check against the kernel."""
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.flash_attention import ops
-
-    ops.flash_attention_bhsd = fk.flash_attention_plain
+def plain_route(ops, name: str, plain):
+    """Route the model's path through ``ops.<name>`` (a model-layout
+    adapter's dispatch to a kernel) to the kernel's plain version ``plain``
+    (on the card) while the context lasts, for the cross-check against the
+    kernel."""
+    dispatch = getattr(ops, name)
+    setattr(ops, name, plain)
     try:
         yield
     finally:
-        ops.flash_attention_bhsd = fk.flash_attention_bhsd
+        setattr(ops, name, dispatch)
 
 
-def profile_device(fn, steps: int, kernel: str, share: str):
+def profile_device(fn, steps: int, shares: dict[str, str]):
     """Device time by kernel over ``steps`` calls of ``fn()``, the
-    device's busy share of their wall, and (under ``share``) the share of
-    device time of the kernels whose name holds ``kernel``."""
+    device's busy share of their wall, and for each ``share: kernel`` of
+    ``shares`` the share of device time of the kernels whose name holds
+    ``kernel``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -609,9 +639,12 @@ def profile_device(fn, steps: int, kernel: str, share: str):
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(ev.self_device_time_total for ev in kernels)
-    kernel_us = sum(ev.self_device_time_total for ev in kernels
-                    if kernel in ev.key)
     measured = total_us > 0
+    share_of = {
+        share: sum(ev.self_device_time_total for ev in kernels
+                   if kernel in ev.key) / total_us if measured
+        else "not measured"
+        for share, kernel in shares.items()}
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:6]
     return {
         "steps": steps,
@@ -620,25 +653,26 @@ def profile_device(fn, steps: int, kernel: str, share: str):
         else "not measured",
         "device_busy_share": total_us / 1e6 / wall if measured
         else "not measured",
-        share: kernel_us / total_us if measured else "not measured",
+        **share_of,
         "kernel_launches_per_step": sum(ev.count for ev in kernels) / steps,
         "top_kernels_us": [[ev.key[:70], ev.count, ev.self_device_time_total]
                            for ev in top],
     }
 
 
-def serve_main_path(phase: str, arch: str, seed: int, counter, tag: str,
-                    kernel: str, **prefill_kw):
+def serve_main_path(phase: str, arch: str, seed: int, kernels: dict,
+                    **prefill_kw):
     """Serve ``arch`` at its published widths (bf16 activations, random
     weights from ``seed``): a 4 x 4096 prefill through
     ``make_prefill_step(**prefill_kw, last_token_only=True)``, cold and
     warm, then ``greedy_generate`` for 4 requests of 64 prompt and 32 new
-    tokens, with every launch count set to 0 just before and
-    ``counter.launches`` read just after; the prefill must launch the
-    kernel once per layer.  Then profiles of a prefill and a decode step
-    (``kernel`` names the kernel whose share is reported as
-    ``<tag>_share_of_device``).  Emits ``phase`` and returns (cfg,
-    params, launches, launches per prefill)."""
+    tokens, with every launch count set to 0 just before and read just
+    after.  ``kernels`` maps a tag to (kernel module with its
+    ``launches``, the kernel's name in the profile, launches each prefill
+    must make).  Then profiles of a prefill and a decode step, with each
+    kernel's share of device time as ``<tag>_share_of_device``.  Emits
+    ``phase`` and returns (cfg, params, {tag: launches}, {tag: launches
+    per prefill})."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_cache, init_model
     from repro_torch.serve import (
@@ -663,33 +697,37 @@ def serve_main_path(phase: str, arch: str, seed: int, counter, tag: str,
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    walls, per_prefill = [], []
+    walls = []
+    per_prefill = {tag: [] for tag in kernels}
     for _ in range(2):  # cold, warm
-        before = counter.launches
+        before = {tag: mod.launches for tag, (mod, _, _) in kernels.items()}
         t0 = time.perf_counter()
         logits = prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        per_prefill.append(counter.launches - before)
+        for tag, (mod, _, _) in kernels.items():
+            per_prefill[tag].append(mod.launches - before[tag])
     t0 = time.perf_counter()
     out = greedy_generate(cfg, params, prompts, 32)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = counter.launches
+    launches = {tag: mod.launches for tag, (mod, _, _) in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    if per_prefill != [cfg.num_layers] * 2:
-        raise AssertionError(f"{tag.upper()} launches per prefill "
-                             f"{per_prefill}, expected {cfg.num_layers}")
+    for tag, (_, _, expected) in kernels.items():
+        if per_prefill[tag] != [expected] * 2:
+            raise AssertionError(f"{tag.upper()} launches per prefill "
+                                 f"{per_prefill[tag]}, expected {expected}")
     if logits.shape != (b, 1, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
     if out.shape != (4, 96) or not torch.equal(out[:, :64], prompts) or \
             int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad greedy output {tuple(out.shape)}")
-    share = f"{tag}_share_of_device"
+    shares = {f"{tag}_share_of_device": name
+              for tag, (_, name, _) in kernels.items()}
     prof_prefill = profile_device(lambda: prefill(params, {"tokens": tokens}),
-                                  steps=1, kernel=kernel, share=share)
+                                  steps=1, shares=shares)
     # Decode steps of the greedy loop's shape: 4 rows at position 63 of a
     # 96-slot cache (the ssm family's state does not grow).
     step = make_decode_step(cfg)
@@ -697,7 +735,7 @@ def serve_main_path(phase: str, arch: str, seed: int, counter, tag: str,
     pos = torch.full((4,), 63, dtype=torch.long, device="cuda")
     prof_decode = profile_device(
         lambda: step(params, prompts[:, -1:], pos, cache), steps=8,
-        kernel=kernel, share=share)
+        shares=shares)
     emit(phase, model=cfg.name, params=n_params,
          param_count_analytic=cfg.param_count(),
          param_dtype=cfg.param_dtype, dtype=cfg.dtype, init_s=init_s,
@@ -705,25 +743,29 @@ def serve_main_path(phase: str, arch: str, seed: int, counter, tag: str,
          prefill_warm_s=walls[1],
          prefill_cold_tokens_per_s=b * s / walls[0],
          prefill_warm_tokens_per_s=b * s / walls[1],
-         **{f"{tag}_launches_per_prefill": per_prefill},
+         **{f"{tag}_launches_per_prefill": n for tag, n in per_prefill.items()},
          generate_requests=4, generate_prompt=64, generate_new=32,
          generate_s=gen_s, decode_steps=64 + 32 - 1,
          decode_new_tokens_per_s=4 * 32 / gen_s,
          decode_steps_per_s=(64 + 32 - 1) / gen_s,
-         peak_memory_gb=peak_gb, **{f"{tag}_launches": launches},
+         peak_memory_gb=peak_gb,
+         **{f"{tag}_launches": n for tag, n in launches.items()},
          profile_warm_prefill=prof_prefill, profile_decode_step=prof_decode)
-    return cfg, params, launches, per_prefill[0]
+    return cfg, params, launches, {tag: n[0] for tag, n in per_prefill.items()}
 
 
 def phase_serve_main_path(seed: int):
     from repro_torch.kernels.flash_attention import kernel as fk
 
-    return serve_main_path("serve_main_path", "olmo_1b", seed, fk, "k2",
-                           "flash_fwd", use_flash=True)
+    cfg, params, launches, per_prefill = serve_main_path(
+        "serve_main_path", "olmo_1b", seed,
+        {"k2": (fk, "flash_fwd", 16)}, use_flash=True)
+    return cfg, params, launches["k2"], per_prefill["k2"]
 
 
 def phase_serve_crosscheck(cfg, params, seed: int):
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models import init_cache
     from repro_torch.serve import make_decode_step, make_prefill_step
 
@@ -737,7 +779,7 @@ def phase_serve_crosscheck(cfg, params, seed: int):
     torch.cuda.synchronize()
     if fk.launches - before != cfg.num_layers:
         raise AssertionError("f32 prefill did not run K2 in every layer")
-    with plain_flash():
+    with plain_route(fops, "flash_attention_bhsd", fk.flash_attention_plain):
         plain = make_prefill_step(cfg32, use_flash=True)(
             params, {"tokens": tokens})
     dense = make_prefill_step(cfg32)(params, {"tokens": tokens})
@@ -909,32 +951,20 @@ def phase_rwkv6_kernel_vs_plain(seed: int):
 def phase_rwkv_serve_main_path(seed: int):
     from repro_torch.kernels.rwkv6 import kernel as rk
 
-    out = serve_main_path("rwkv_serve_main_path", "rwkv6_1b6", seed, rk, "k3",
-                          "rwkv6_fwd", use_scan_kernel=True)
-    n_params = sum(p.numel() for p in out[1].parameters())
+    cfg, params, launches, per_prefill = serve_main_path(
+        "rwkv_serve_main_path", "rwkv6_1b6", seed,
+        {"k3": (rk, "rwkv6_fwd", 24)}, use_scan_kernel=True)
+    n_params = sum(p.numel() for p in params.parameters())
     print(f"rwkv6-1.6b parameters: {n_params}", flush=True)
     if n_params != RWKV_PARAMS:
         raise AssertionError(f"rwkv6-1.6b tree holds {n_params} parameters, "
                              f"expected {RWKV_PARAMS}")
-    return out
-
-
-@contextlib.contextmanager
-def plain_scan():
-    """Route the model's K3 path to K3's plain version (on the card), for
-    the cross-check against the kernel."""
-    from repro_torch.kernels.rwkv6 import kernel as rk
-    from repro_torch.kernels.rwkv6 import ops
-
-    ops.rwkv6_chunked_bhtd = rk.rwkv6_plain
-    try:
-        yield
-    finally:
-        ops.rwkv6_chunked_bhtd = rk.rwkv6_chunked_bhtd
+    return cfg, params, launches["k3"], per_prefill["k3"]
 
 
 def phase_rwkv_serve_crosscheck(cfg, params, seed: int):
     from repro_torch.kernels.rwkv6 import kernel as rk
+    from repro_torch.kernels.rwkv6 import ops as rops
     from repro_torch.models import init_cache
     from repro_torch.serve import make_decode_step, make_prefill_step
 
@@ -949,7 +979,7 @@ def phase_rwkv_serve_crosscheck(cfg, params, seed: int):
     torch.cuda.synchronize()
     if rk.launches - before != cfg.num_layers:
         raise AssertionError("f32 prefill did not run K3 in every layer")
-    with plain_scan():
+    with plain_route(rops, "rwkv6_chunked_bhtd", rk.rwkv6_plain):
         plain = make_prefill_step(cfg32, use_scan_kernel=True)(
             params, {"tokens": tokens})
     chunked = make_prefill_step(cfg32)(params, {"tokens": tokens})
@@ -1027,6 +1057,277 @@ def phase_rwkv6_timing(seed: int, serve_launches: int, per_prefill: int):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# The Mamba2 SSD scan (K4) and the zamba2 serving path
+# ---------------------------------------------------------------------------
+#: (name, b, h, t, p, n, chunk, decay sharpening, atol of y's scale): the
+#: four shapes of tests/test_kernels.py, strong decays at chunk 16 (a down
+#: to ~1e-13), and zamba2-2.7b's prefill call twice: with the decays the
+#: model makes at its init (sharpening None: a = exp(-dt), A_log = 0), and
+#: with test_kernels.py's weaker ones.  With n = 64 and unit-normal B and
+#: C, y there reaches ~200 and its terms more; their f32 sums cancel in
+#: small outputs to errors of ~1e-3 in the kernel and in the plain version
+#: alike (each is held against the plain version computed in f64, and
+#: both errors are reported), so atol is taken there as 1e-4 of max |y|,
+#: or the dtype's atol where that is larger (rtol stays the dtype's).
+SSD_CASES = (
+    ("tiny", 1, 1, 32, 8, 8, 16, 0.0, False),
+    ("3-chunk-t100", 2, 3, 100, 16, 8, 32, 0.0, False),
+    ("one-chunk", 1, 2, 64, 32, 16, 64, 0.0, False),
+    ("ragged-t70", 1, 2, 70, 16, 8, 32, 0.0, False),
+    ("strong-decay", 1, 2, 128, 16, 8, 16, 1.5, False),
+    ("zamba2-2.7b", 4, 80, 4096, 64, 64, 64, None, True),
+    ("zamba2-2.7b-weak-decays", 4, 80, 4096, 64, 64, 64, 0.0, True),
+)
+#: dtype of x/B/C -> (atol, rtol) of K4's y against its plain version: f32
+#: sums in another order; bf16 adds one rounding of y, which is relative.
+#: The f32 state is held at 1e-4 abs and rel in both.
+SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+ZAMBA_PARAMS = 2_340_750_240  # the zamba2-2.7b tree (param_count() says 2.3455e9)
+
+
+def ssd_inputs(gen, b, h, t, p, n, sharpen, dtype):
+    """x, B, C (dtype), dt, a, s0 (f32) as the model-layout adapter passes
+    them: x (b, h, t, p) and dt, a (b, h, t) views of (b, t, h, *) tensors;
+    dt = softplus(N), a = exp(-exp(N - 1 + sharpen) dt) as
+    tests/test_kernels.py draws them, or a = exp(-dt) (the model's at
+    A_log = 0) when ``sharpen`` is None."""
+    def seq(*tail):
+        return torch.randn((b, t, h, *tail), generator=gen, device="cuda")
+    x = seq(p).to(dtype).transpose(1, 2)
+    dt = torch.nn.functional.softplus(seq()).transpose(1, 2)
+    rate = (1.0 if sharpen is None
+            else torch.exp(seq().transpose(1, 2) - 1.0 + sharpen))
+    a = torch.exp(-rate * dt)
+    B, C = (torch.randn((b, t, n), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    s0 = 0.1 * torch.randn((b, h, p, n), generator=gen, device="cuda")
+    return x, dt, a, B, C, s0
+
+
+def ssd_bound(b, h, t, p, n, chunk, dtype) -> tuple[float, str, int, int]:
+    """(bound_ms, bound_by, bytes, flops) of one call: x, dt, a, B, C and
+    s0 read once, y and the state written once; per chunk of m rows the
+    lower triangle (m (m + 1) / 2 pairs) of C B^T once per batch row (B and
+    C are shared across heads) and of scores x per head (2 n and 2 p flops
+    per pair), and C S^T and the state update in full (2 m p n each)."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (2 * b * h * t * p * esize + 2 * b * h * t * 4
+              + 2 * b * t * n * esize + 2 * b * h * p * n * 4)
+    c = min(chunk, t)
+    rows = [c] * (t // c) + ([t % c] if t % c else [])
+    pairs = [m * (m + 1) // 2 for m in rows]
+    flops = (b * sum(2 * n * q for q in pairs)
+             + b * h * sum(2 * p * q + 4 * m * p * n
+                           for m, q in zip(rows, pairs)))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, flops
+    return t_ops, "operations", nbytes, flops
+
+
+def phase_ssd_kernel_vs_plain(seed: int):
+    from repro_torch.kernels.ssd import kernel as sk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    for dtype, (atol, rtol) in SSD_TOL.items():
+        for name, b, h, t, p, n, chunk, sharpen, of_scale in SSD_CASES:
+            args = ssd_inputs(gen, b, h, t, p, n, sharpen, dtype)
+            before = sk.launches
+            got_y, got_s = sk.ssd_cuda(*args, chunk=chunk)
+            again_y, again_s = sk.ssd_cuda(*args, chunk=chunk)
+            want_y, want_s = sk.ssd_plain(*args, chunk=chunk)
+            y64, _ = sk.ssd_plain(*(v.double() for v in args), chunk=chunk)
+            torch.cuda.synchronize()
+            if sk.launches != before + 2:
+                raise AssertionError(f"{name}: launch counter did not advance")
+            if not (torch.equal(got_y, again_y) and torch.equal(got_s, again_s)):
+                raise AssertionError(f"{name}: kernel rerun not bitwise equal")
+            if got_y.dtype != dtype or got_s.dtype != torch.float32:
+                raise AssertionError(f"{name}: output dtypes {got_y.dtype}, "
+                                     f"{got_s.dtype}")
+            diff = (got_y.float() - want_y.float()).abs()
+            err = diff.max().item()
+            diff_s = (got_s - want_s).abs()
+            err_s = diff_s.max().item()
+            y_max = want_y.float().abs().max().item()
+            y_atol = max(atol, 1e-4 * y_max) if of_scale else atol
+            if not bool((diff <= y_atol + rtol * want_y.float().abs()).all()):
+                raise AssertionError(
+                    f"{name} {dtype}: kernel y != plain version (max abs err "
+                    f"{err}, atol {y_atol}, rtol {rtol})")
+            if not bool((diff_s <= 1e-4 + 1e-4 * want_s.abs()).all()):
+                raise AssertionError(
+                    f"{name} {dtype}: kernel state != plain version (max abs "
+                    f"err {err_s}, atol = rtol = 1e-4)")
+            emit("ssd_kernel_vs_plain", case=name,
+                 dtype=str(dtype).replace("torch.", ""),
+                 shape=[b, h, t, p, n], chunk=chunk, decay_sharpening=sharpen,
+                 min_a=args[2].min().item(), max_abs_err=err,
+                 y_abs_max=y_max, state_max_abs_err=err_s, atol=y_atol,
+                 rtol=rtol, rerun_bitwise_equal=True,
+                 kernel_vs_f64_max_abs_err=(got_y.double() - y64).abs().max().item(),
+                 plain_vs_f64_max_abs_err=(want_y.double() - y64).abs().max().item())
+
+
+def phase_zamba_serve_main_path(seed: int):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
+
+    cfg, params, launches, per_prefill = serve_main_path(
+        "zamba_serve_main_path", "zamba2_2b7", seed,
+        {"k4": (sk, "ssd_fwd", 54), "k2": (fk, "flash_fwd", 9)},
+        use_flash=True, use_scan_kernel=True)
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"zamba2-2.7b parameters: {n_params}", flush=True)
+    if n_params != ZAMBA_PARAMS:
+        raise AssertionError(f"zamba2-2.7b tree holds {n_params} parameters, "
+                             f"expected {ZAMBA_PARAMS}")
+    return cfg, params, launches, per_prefill
+
+
+def phase_zamba_serve_crosscheck(cfg, params, seed: int):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.models import init_cache
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    b, s = 1, 1024
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda")
+    both = dict(use_flash=True, use_scan_kernel=True)
+    k4_0, k2_0 = sk.launches, fk.launches
+    kern = make_prefill_step(cfg32, **both)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    if (sk.launches - k4_0, fk.launches - k2_0) != (54, 9):
+        raise AssertionError("f32 prefill did not run K4 in every layer and "
+                             "K2 in every shared block")
+    with plain_route(sops, "ssd_chunked_bhtp", sk.ssd_plain):
+        plain4 = make_prefill_step(cfg32, **both)(params, {"tokens": tokens})
+    chunked = make_prefill_step(cfg32, use_flash=True)(params,
+                                                       {"tokens": tokens})
+    torch.cuda.synchronize()
+    if sk.launches - k4_0 != 54:
+        raise AssertionError("the plain and chunked routes launched K4")
+    k2_1 = fk.launches
+    with plain_route(fops, "flash_attention_bhsd", fk.flash_attention_plain):
+        plain2 = make_prefill_step(cfg32, **both)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    if fk.launches != k2_1:
+        raise AssertionError("K2's plain route launched K2")
+    err_plain4 = (kern - plain4).abs().max().item()
+    err_chunked = (kern - chunked).abs().max().item()
+    err_plain2 = (kern - plain2).abs().max().item()
+
+    # The decode route carries the SSD and conv states token by token and
+    # the shared block's KV caches; 200 tokens are three full chunks and a
+    # ragged fourth in the prefill.
+    s_dec = 200
+    short = tokens[:, :s_dec]
+    pre = make_prefill_step(cfg32, **both, last_token_only=True)(
+        params, {"tokens": short})
+    cache = init_cache(cfg32, b, s_dec, device="cuda")
+    step = make_decode_step(cfg32)
+    for t in range(s_dec):
+        pos = torch.full((b,), t, dtype=torch.long, device="cuda")
+        logits, cache = step(params, short[:, t:t + 1], pos, cache)
+    err_decode = (pre[:, -1] - logits[:, -1]).abs().max().item()
+    torch.cuda.synchronize()
+    for what, err in (("K4's plain version", err_plain4),
+                      ("ssd_scan_chunked route", err_chunked),
+                      ("K2's plain version", err_plain2),
+                      ("decode route", err_decode)):
+        if not err <= SERVE_TOL:
+            raise AssertionError(f"f32 prefill with K4 and K2 vs {what}: max "
+                                 f"abs err {err} > {SERVE_TOL}")
+    emit("zamba_serve_crosscheck", dtype="float32", batch=[b, s],
+         decode_prompt=s_dec, logits_abs_max=kern.abs().max().item(),
+         atol=SERVE_TOL, k4_vs_plain_max_abs_err=err_plain4,
+         k4_vs_chunked_max_abs_err=err_chunked,
+         k2_vs_plain_max_abs_err=err_plain2,
+         prefill_last_vs_decode_route_max_abs_err=err_decode)
+
+
+def phase_ssd_timing(seed: int, serve_launches: int, per_prefill: int):
+    from repro_torch.kernels.ssd import kernel as sk
+
+    b, h, t, p, n, chunk = 4, 80, 4096, 64, 64, 64  # zamba2-2.7b's call
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    args = ssd_inputs(gen, b, h, t, p, n, None, dtype)
+    got, _ = sk.ssd_cuda(*args, chunk=chunk)
+    want, _ = sk.ssd_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    max_err = (got.float() - want.float()).abs().max().item()
+    ms = cuda_ms(lambda: sk.ssd_cuda(*args, chunk=chunk), 10)
+    args32 = [args[0].float(), *args[1:3], args[3].float(), args[4].float(),
+              args[5]]
+    ms_f32 = cuda_ms(lambda: sk.ssd_cuda(*args32, chunk=chunk), 10)
+    plain_ms = cuda_ms(lambda: sk.ssd_plain(*args, chunk=chunk), 3)
+    bound_ms, bound_by, nbytes, flops = ssd_bound(b, h, t, p, n, chunk, dtype)
+    entry = {
+        "name": "ssd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:27",
+        "launches": serve_launches,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes the SSD scan
+        "shape": [b, h, t, p, n],
+        "chunk": chunk,
+        "dtype": "bfloat16",
+        "launches_per_prefill": per_prefill,
+        "bytes_per_call": nbytes,
+        "flops_per_call": flops,
+        "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+        "ms_float32_inputs": ms_f32,
+    }
+    emit("ssd_timing", **entry)
+    return entry
+
+
+def phase_flash_timing_hd80(seed: int, serve_launches: int,
+                            per_prefill: int) -> dict:
+    """K2 at zamba2-2.7b's shared attention call (4, 32, 4096, 80) bf16:
+    its time beside its bound, its plain version and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    b, h, kvh, s, hd = 4, 32, 32, 4096, 80
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    q, k, v = flash_inputs(gen, b, h, kvh, s, hd, dtype)
+    kw = dict(scale=hd ** -0.5)
+    got = fk.flash_attention_cuda(q, k, v, **kw)
+    want = fk.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    max_err = (got.float() - want.float()).abs().max().item()
+    ms = cuda_ms(lambda: fk.flash_attention_cuda(q, k, v, **kw), 5)
+    plain_ms = cuda_ms(lambda: fk.flash_attention_plain(q, k, v, **kw), 2)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=kw["scale"]), 5)
+    bound_ms, bound_by, nbytes, flops = flash_bound(b, h, kvh, s, hd, dtype)
+    entry = {"shape": [b, h, kvh, s, hd], "dtype": "bfloat16",
+             "launches": serve_launches, "launches_per_prefill": per_prefill,
+             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": library_ms, "bytes_per_call": nbytes,
+             "flops_per_call": flops,
+             "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+    emit("flash_timing_hd80", **entry)
+    return entry
+
+
 def run_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1077,8 +1378,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     k3 = run_phase("rwkv6_timing", phase_rwkv6_timing, args.seed,
                    serve_launches, per_prefill)
+    run_phase("ssd_kernel_vs_plain", phase_ssd_kernel_vs_plain, args.seed)
+    cfg, params, zamba_launches, zamba_per_prefill = run_phase(
+        "zamba_serve_main_path", phase_zamba_serve_main_path, args.seed)
+    run_phase("zamba_serve_crosscheck", phase_zamba_serve_crosscheck, cfg,
+              params, args.seed)
+    del params
+    torch.cuda.empty_cache()
+    k4 = run_phase("ssd_timing", phase_ssd_timing, args.seed,
+                   zamba_launches["k4"], zamba_per_prefill["k4"])
+    # K2 runs on two main paths: olmo-1b's prefill (hd 128) and zamba2's
+    # shared block (hd 80).
+    k2["zamba2_hd80"] = run_phase(
+        "flash_timing_hd80", phase_flash_timing_hd80, args.seed,
+        zamba_launches["k2"], zamba_per_prefill["k2"])
+    k2["launches_by_path"] = {"olmo-1b": k2["launches"],
+                              "zamba2-2.7b": zamba_launches["k2"]}
+    k2["launches"] += zamba_launches["k2"]
     emit("done", total_s=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -38,6 +38,7 @@ KERNELS: dict[str, tuple[str, tuple[str, ...]]] = {
     "waterfill": ("accel/csrc/waterfill.cu", ("-fmad=false",)),
     "flash_attention": ("kernels/flash_attention/csrc/flash_attention.cu", ()),
     "rwkv6": ("kernels/rwkv6/csrc/rwkv6.cu", ()),
+    "ssd": ("kernels/ssd/csrc/ssd.cu", ()),
 }
 
 #: name -> loaded library (one per source per process).

@@ -18,7 +18,7 @@ from repro_torch.configs.base import (
     shape_applicable,
 )
 
-ARCHS = ["olmo_1b", "rwkv6_1b6", "starcoder2_3b"]
+ARCHS = ["olmo_1b", "rwkv6_1b6", "starcoder2_3b", "zamba2_2b7"]
 
 _ALIASES = {
     "olmo-1b": "olmo_1b",
@@ -35,7 +35,6 @@ _ALIASES = {
 
 #: Architectures of the reference not ported yet -> the ROADMAP item.
 _NOT_PORTED = {
-    "zamba2_2b7": "ROADMAP Queue 1 item 2 (zamba2, kernel K4)",
     "command_r_35b": "ROADMAP Queue 1 item 7 (other model families)",
     "gemma2_2b": "ROADMAP Queue 1 item 7 (gemma2's softcap and "
                  "local/global layers)",

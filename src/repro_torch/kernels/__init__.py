@@ -1,2 +1,17 @@
 """Kernels of the port: each a hand-written CUDA kernel for Hopper beside
 its plain PyTorch version, mirroring ``repro.kernels``."""
+
+#: Chunk lengths the chunked-scan kernels (K3, K4) are built for.
+CHUNKS = (16, 32, 64)
+
+
+def chunk_tile(c: int, t: int) -> int:
+    """A chunked-scan kernel's chunk tile for the reference's chunk length
+    ``c = min(chunk, t)``: a single short chunk (``c == t``) runs in the
+    smallest tile that holds it, its extra rows masked as the padding they
+    equal."""
+    if c in CHUNKS:
+        return c
+    if c == t and t < CHUNKS[-1]:
+        return min(v for v in CHUNKS if v >= t)
+    raise ValueError(f"chunk length {c} not in {CHUNKS}")

@@ -11,8 +11,9 @@
 // * One thread block per (q tile of 64 rows, head, batch); 256 threads as
 //   16 x 16.  Thread (ty, tx) owns query rows ty + 16 i (i < 4), score
 //   columns tx + 16 j (j < 4) of each kv tile, and output columns
-//   tx * VEC + 16 * VEC * n (+ e < VEC) of the head dim.  m, l and the
-//   accumulator of its rows stay in registers through the kv loop.
+//   tx * VEC + 16 * VEC * n (+ e < VEC) of the head dim, VEC being the
+//   largest of 4, 2 and 1 that divides hd / 16 (scalar for hd 80).  m, l
+//   and the accumulator of its rows stay in registers through the kv loop.
 // * The block walks kv tiles of 64 rows.  Q is staged once in shared
 //   memory as f32; each K tile, then each V tile, is staged in one shared
 //   buffer (converted to f32 on the way in); the tile's probabilities go
@@ -112,9 +113,13 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Params p) {
   constexpr int LD = HD + kRowPad;
   constexpr int CW = HD / 16;            // output columns per thread
-  constexpr int VEC = CW < 4 ? CW : 4;   // floats per vector load
+  // Floats per vector load: the largest of 4, 2 and 1 that divides CW
+  // (hd 80 gives CW = 5 and scalar loads).
+  constexpr int VEC = CW % 4 == 0 ? 4 : CW % 2 == 0 ? 2 : 1;
   constexpr int NV = CW / VEC;           // vectors per thread and row
   static_assert(kBQ == kBKV, "load_tile stages 64-row tiles");
+  static_assert(HD % 16 == 0 && CW % VEC == 0,
+                "head dim a multiple of 16, its columns whole vectors");
 
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kBQ][LD]
@@ -245,10 +250,12 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Params p) {
             vv[4 * n + 1] = x.y;
             vv[4 * n + 2] = x.z;
             vv[4 * n + 3] = x.w;
-          } else {
+          } else if constexpr (VEC == 2) {
             const float2 x = *reinterpret_cast<const float2*>(&vrow[col]);
             vv[2 * n] = x.x;
             vv[2 * n + 1] = x.y;
+          } else {
+            vv[n] = vrow[col];
           }
         }
 #pragma unroll
@@ -304,6 +311,7 @@ int launch_hd(const Params& p, int hd, int b, int h, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch<T, 32>(p, b, h, stream);
     case 64: return launch<T, 64>(p, b, h, stream);
+    case 80: return launch<T, 80>(p, b, h, stream);
     case 128: return launch<T, 128>(p, b, h, stream);
     default: return -1;
   }

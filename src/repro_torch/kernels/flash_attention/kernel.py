@@ -10,10 +10,10 @@ f32; the output is in the input dtype.
 * :func:`flash_attention_cuda` launches ``csrc/flash_attention.cu`` (one
   thread block per 64-row q tile, head and batch; K and V tiles staged in
   shared memory; f32 CUDA-core arithmetic) on f32 or bf16 tensors with
-  ``hd`` in {32, 64, 128}.  It reads the inputs through their strides, so
-  the model-layout adapter (:mod:`.ops`) passes transposed views without
-  copies, and it writes its output straight into the ``(b, sq, h, hd)``
-  layout.
+  ``hd`` in {32, 64, 80, 128}.  It reads the inputs through their
+  strides, so the model-layout adapter (:mod:`.ops`) passes transposed
+  views without copies, and it writes its output straight into the
+  ``(b, sq, h, hd)`` layout.
 * :func:`flash_attention_plain` is the plain PyTorch version: the TPU
   kernel's grid written out as loops over q and kv blocks, with its block
   skips, its ``NEG_INF = -1e30`` and its ``max(l, 1e-30)``.
@@ -42,7 +42,7 @@ import torch.nn.functional as F
 launches = 0
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

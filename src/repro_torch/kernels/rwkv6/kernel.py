@@ -49,11 +49,12 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import chunk_tile as _tile
+
 #: Kernel launches made by :func:`rwkv6_cuda` (one per call).
 launches = 0
 
 HEAD_DIMS = (8, 16, 32, 64)
-CHUNKS = (16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -129,17 +130,6 @@ def _kernel():
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
-
-
-def _tile(c: int, t: int) -> int:
-    """The kernel's chunk tile for the reference's chunk length ``c``: a
-    single short chunk (``c == t``) runs in the smallest tile that holds
-    it, its extra rows masked as the padding they equal."""
-    if c in CHUNKS:
-        return c
-    if c == t and t < CHUNKS[-1]:
-        return min(x for x in CHUNKS if x >= t)
-    raise ValueError(f"chunk length {c} not in {CHUNKS}")
 
 
 def rwkv6_cuda(r, k, v, w, u, s0, *, chunk: int = 64):

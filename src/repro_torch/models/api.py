@@ -1,8 +1,8 @@
 """Public model API of the port (``repro/models/api.py``): one entry point
-per model operation.  The serving engine goes through these.  The dense
-and ssm (rwkv6) families are ported: every other family (encdec
-included) raises in :mod:`.transformer` and names the ROADMAP item that
-ports it.
+per model operation.  The serving engine goes through these.  The dense,
+ssm (rwkv6) and hybrid (zamba2) families are ported: every other family
+(encdec included) raises in :mod:`.transformer` and names the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -38,10 +38,12 @@ def forward(
     unembed_last_only: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Prefill forward.  Returns (logits, aux_loss).  ``use_flash`` routes
-    the dense family's causal attention to kernel K2, ``use_scan_kernel``
-    the ssm family's WKV scan to kernel K3 (the reference's
-    ``rwkv_time_mix(use_pallas=True)`` route, which its ``forward`` does
-    not expose); both default to the reference's default route."""
+    the causal attention of the dense family and of the hybrid's shared
+    block to kernel K2, ``use_scan_kernel`` the ssm family's WKV scan to
+    kernel K3 and the hybrid's SSD scan to kernel K4 (the reference's
+    ``rwkv_time_mix(use_pallas=True)`` and ``ssd_block(use_pallas=True)``
+    routes, which its ``forward`` does not expose); both default to the
+    reference's default route."""
     return T.lm_forward(cfg, params, batch, use_flash=use_flash,
                         use_scan_kernel=use_scan_kernel,
                         unembed_last_only=unembed_last_only)

@@ -3,12 +3,15 @@ the families ported so far:
 
 * ``dense`` — olmo-1b, starcoder2-3b, and the dense flags of the others
   (parallel residual, post-block norms, local/global layers);
-* ``ssm``   — rwkv6 (attention-free; :mod:`repro_torch.models.rwkv`).
+* ``ssm``   — rwkv6 (attention-free; :mod:`repro_torch.models.rwkv`);
+* ``hybrid`` — zamba2 (a mamba2 stack, :mod:`repro_torch.models.ssd`, with
+  ONE shared attention+MLP block applied after every
+  ``shared_attn_period``-th layer).
 
 Parameters keep the reference's tree: each leaf under ``"layers"`` has a
-leading ``(L, ...)`` layer axis.  Layers run in a Python loop over views
-of that axis, not a scan.  The moe, hybrid, vlm and encdec families
-raise.
+leading ``(L, ...)`` layer axis (the hybrid's ``"shared"`` block has
+none).  Layers run in a Python loop over views of that axis, not a scan.
+The moe, vlm and encdec families raise.
 
     params = init_lm(cfg, generator)
     logits, aux = lm_forward(cfg, params, batch)                (prefill)
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rwkv as R
+from repro_torch.models import ssd as M
 from repro_torch.models.attention import (
     attention_block,
     decode_attention_block,
@@ -41,7 +45,6 @@ from repro_torch.models.common import (
 
 #: Families not ported yet -> the ROADMAP item that ports them.
 _NOT_PORTED = {
-    "hybrid": "ROADMAP Queue 1 item 2 (zamba2, kernel K4)",
     "moe": "ROADMAP Queue 1 item 7 (other model families)",
     "vlm": "ROADMAP Queue 1 item 7 (other model families)",
     "encdec": "ROADMAP Queue 1 item 7 (other model families)",
@@ -49,7 +52,7 @@ _NOT_PORTED = {
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
             f"{_NOT_PORTED[cfg.family]}"
@@ -64,6 +67,11 @@ def global_flags(cfg: ModelConfig) -> np.ndarray:
         idx = np.arange(L)
         return (idx % cfg.local_global_period) == (cfg.local_global_period - 1)
     return np.ones((L,), dtype=bool)
+
+
+def _n_shared_applications(cfg: ModelConfig) -> int:
+    return (cfg.num_layers // cfg.shared_attn_period
+            if cfg.shared_attn_period else 0)
 
 
 def _layer_slice(tree, i: int) -> dict:
@@ -87,6 +95,20 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> dict:
             "tmix": R.init_rwkv_block(cfg, gen, layers=L),
             "ln2": init_norm(cfg, dev, layers=L),
             "cmix": R.init_channel_mix(cfg, gen, layers=L),
+        }
+        return p
+    if cfg.family == "hybrid":  # zamba2
+        p["layers"] = {
+            "ln1": init_norm(cfg, dev, layers=L),
+            "ssd": M.init_ssd_block(cfg, gen, layers=L),
+        }
+        # ONE shared attention+MLP block reused every shared_attn_period
+        # layers (zamba2's parameter-sharing trick).
+        p["shared"] = {
+            "ln1": init_norm(cfg, dev),
+            "attn": init_attention(cfg, gen),
+            "ln2": init_norm(cfg, dev),
+            "mlp": init_mlp(cfg, gen),
         }
         return p
     p["layers"] = {
@@ -134,6 +156,23 @@ def _rwkv_layer(cfg, p_l, s_l, x, **scan):
     return x + h2, {"S": st["S"], "shift": st["shift"], "cmix_shift": cshift}
 
 
+def _mamba_layer(cfg, p_l, s_l, x, **scan):
+    """One zamba2 mamba layer; ``scan`` picks the SSD scan of
+    ``ssd_block`` (``use_kernel`` in the prefill, ``use_ref`` in decode)."""
+    h, st = M.ssd_block(cfg, p_l["ssd"], apply_norm(cfg, p_l["ln1"], x), s_l,
+                        **scan)
+    return x + h, st
+
+
+def _shared_attn_block(cfg, shared, x, positions, *, use_flash):
+    h = apply_norm(cfg, shared["ln1"], x)
+    h = attention_block(cfg, shared["attn"], h, positions,
+                        use_flash=use_flash)
+    x = x + h
+    m = apply_mlp(cfg, shared["mlp"], apply_norm(cfg, shared["ln2"], x))
+    return x + m
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
@@ -148,13 +187,19 @@ def lm_forward(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """batch: {"tokens": (b, s)}.  Returns (logits (b, s, V), aux_loss
     scalar); with ``unembed_last_only`` the logits are (b, 1, V).
-    ``use_flash`` applies to the dense family, ``use_scan_kernel`` (the
-    WKV scan in :mod:`repro_torch.kernels.rwkv6`) to the ssm family; each
-    family ignores the other's flag."""
+    ``use_flash`` (causal attention in
+    :mod:`repro_torch.kernels.flash_attention`) applies to the dense
+    family and the hybrid's shared block, ``use_scan_kernel`` (the WKV scan
+    in :mod:`repro_torch.kernels.rwkv6`, the SSD scan in
+    :mod:`repro_torch.kernels.ssd`) to the ssm and hybrid families; a
+    family ignores a flag that does not apply to it."""
     _check_family(cfg)
     x = embed_tokens(cfg, params["embed"], batch["tokens"])
     if cfg.family == "ssm":
         x = _rwkv_stack_forward(cfg, params, x, use_kernel=use_scan_kernel)
+    elif cfg.family == "hybrid":
+        x = _hybrid_stack_forward(cfg, params, x, use_flash=use_flash,
+                                  use_kernel=use_scan_kernel)
     else:
         x = _attn_stack_forward(cfg, params, x, use_flash=use_flash)
     if unembed_last_only:
@@ -184,16 +229,42 @@ def _rwkv_stack_forward(cfg, params, x, *, use_kernel):
     return x
 
 
+def _hybrid_stack_forward(cfg, params, x, *, use_flash, use_kernel):
+    """Every mamba layer starts from a zero state, as the reference's
+    prefill (one zero state serves them all: nothing writes into it); the
+    shared block runs after every ``shared_attn_period``-th layer."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    zero = _layer_slice(M.init_ssd_state(cfg, b, layers=1, device=x.device), 0)
+    period = cfg.shared_attn_period
+    for i in range(cfg.num_layers):
+        x, _ = _mamba_layer(cfg, _layer_slice(params["layers"], i), zero, x,
+                            use_kernel=use_kernel)
+        if period and (i + 1) % period == 0:
+            x = _shared_attn_block(cfg, params["shared"], x, positions,
+                                   use_flash=use_flash)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Decode (one token against a cache)
 # ---------------------------------------------------------------------------
 def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
-    """The dense family's KV cache, or the ssm family's recurrent state
-    (which does not grow with ``max_seq``)."""
+    """The dense family's KV cache, the ssm family's recurrent state
+    (which does not grow with ``max_seq``), or the hybrid's mamba states
+    and conv tails plus one KV cache per application of the shared block
+    (``shared_k``/``shared_v``)."""
     _check_family(cfg)
     if cfg.family == "ssm":
         return R.init_rwkv_state(cfg, batch, layers=cfg.num_layers,
                                  device=device)
+    if cfg.family == "hybrid":
+        cache = M.init_ssd_state(cfg, batch, layers=cfg.num_layers,
+                                 device=device)
+        kv = init_kv_cache(cfg, batch, max_seq,
+                           layers=_n_shared_applications(cfg), device=device)
+        cache["shared_k"], cache["shared_v"] = kv["k"], kv["v"]
+        return cache
     return init_kv_cache(cfg, batch, max_seq, layers=cfg.num_layers,
                          device=device)
 
@@ -234,6 +305,8 @@ def lm_decode(
             states.append(st)
         new_cache = {k: torch.stack([st[k] for st in states])
                      for k in ("S", "shift", "cmix_shift")}
+    elif cfg.family == "hybrid":
+        x, new_cache = _hybrid_decode(cfg, params, x, positions, cache)
     else:
         flags = global_flags(cfg)
         ks, vs = [], []
@@ -248,3 +321,33 @@ def lm_decode(
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)
     return logits, new_cache
+
+
+def _hybrid_decode(cfg, params, x, positions, cache):
+    """The hybrid's decode: every mamba layer steps its state through the
+    sequential scan (t = 1) with its conv tail; the shared block decodes
+    after every ``shared_attn_period``-th layer against KV slot
+    ``(i + 1) // period - 1``.  Returns (x, the new cache)."""
+    period = cfg.shared_attn_period
+    shared = params["shared"]
+    states, ks, vs = [], [], []
+    for i in range(cfg.num_layers):
+        s_l = {k: cache[k][i] for k in ("ssm", "conv_x", "conv_B", "conv_C")}
+        x, st = _mamba_layer(cfg, _layer_slice(params["layers"], i), s_l, x,
+                             use_ref=True)
+        states.append(st)
+        if period and (i + 1) % period == 0:
+            app = (i + 1) // period - 1
+            h = apply_norm(cfg, shared["ln1"], x)
+            h, k_l, v_l = decode_attention_block(
+                cfg, shared["attn"], h, positions, cache["shared_k"][app],
+                cache["shared_v"][app])
+            x = x + h
+            x = x + apply_mlp(cfg, shared["mlp"],
+                              apply_norm(cfg, shared["ln2"], x))
+            ks.append(k_l)
+            vs.append(v_l)
+    new_cache = {k: torch.stack([st[k] for st in states]) for k in states[0]}
+    new_cache["shared_k"] = torch.stack(ks) if ks else cache["shared_k"]
+    new_cache["shared_v"] = torch.stack(vs) if vs else cache["shared_v"]
+    return x, new_cache

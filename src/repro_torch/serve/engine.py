@@ -5,10 +5,12 @@ request queue.
 
 The steps run eagerly under ``torch.no_grad`` on the device the
 parameters lie on.  ``use_flash`` defaults to False as in the reference;
-with it, every causal prefill layer of the dense family runs flash
-attention (kernel K2 on the card).  ``use_scan_kernel`` (default False,
-the reference's route) runs every prefill layer's WKV scan of the ssm
-family in kernel K3.
+with it, every causal prefill layer of the dense family, and every
+application of the hybrid's shared block, runs flash attention (kernel
+K2 on the card).  ``use_scan_kernel`` (default False, the reference's
+route) runs every prefill layer's WKV scan of the ssm family in kernel
+K3, and every mamba layer's SSD scan of the hybrid family in kernel K4;
+the hybrid honours both flags.
 """
 
 from __future__ import annotations

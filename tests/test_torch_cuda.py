@@ -21,7 +21,17 @@ that has only the port's dependencies:
   tests/test_torch_rwkv6.py), with bitwise-equal reruns and the launch
   counter; the model layout's strided views; the refusals;
 * the rwkv6 SMOKE prefill with K3 against the chunked-scan route, f32,
-  1e-4.
+  1e-4;
+* K2 at head dim 80 (zamba2's shared attention), at a small shape and at
+  zamba2's (4, 32, 4096, 80);
+* K4 (the Mamba2 SSD scan) against its plain version on the shapes of
+  tests/test_kernels.py, strong decays at chunk 16, a short single chunk
+  and p = n = 64, f32 y and state at atol = rtol = 1e-4 and bf16 x/B/C at
+  atol = rtol = 2e-2 (the plain version is held to the reference on the
+  CPU in tests/test_torch_ssd.py), with bitwise-equal reruns and the
+  launch counter; the model layout's strided views; the refusals;
+* the zamba2 SMOKE prefill (head dim 32, so that K2 takes it) with K4
+  and K2 against the plain routes, f32, 1e-4.
 """
 
 import dataclasses
@@ -34,6 +44,8 @@ from repro_torch import configs
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.rwkv6 import kernel as K3
 from repro_torch.kernels.rwkv6.ops import rwkv6_chunked
+from repro_torch.kernels.ssd import kernel as K4
+from repro_torch.kernels.ssd.ops import ssd_chunked
 from repro_torch.models import init_model
 from repro_torch.serve import make_prefill_step
 
@@ -44,6 +56,8 @@ SHAPES = {  # b, h, kvh, sq, skv, hd, block_q, block_kv
     "3-block": (2, 2, 2, 96, 96, 32, 32, 32),
     "ragged-q": (1, 2, 2, 80, 80, 32, 32, 32),
     "sq>skv": (1, 4, 2, 80, 48, 128, 32, 32),
+    "hd80": (1, 4, 2, 96, 96, 80, 32, 32),
+    "zamba2-hd80": (4, 32, 32, 4096, 4096, 80, 512, 512),
 }
 
 
@@ -199,5 +213,93 @@ def test_rwkv_prefill_with_kernel_matches_chunked_route_on_card(cuda):
     before = K3.launches
     got = make_prefill_step(cfg, use_scan_kernel=True)(params, {"tokens": tok})
     assert K3.launches == before + cfg.num_layers
+    want = make_prefill_step(cfg)(params, {"tokens": tok})
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+SSD_SHAPES = {  # b, h, t, p, n, chunk, decay sharpening
+    "tiny": (1, 1, 32, 8, 8, 16, 0.0),
+    "3-chunk-t100": (2, 3, 100, 16, 8, 32, 0.0),
+    "one-chunk": (1, 2, 64, 32, 16, 64, 0.0),
+    "ragged-t70": (1, 2, 70, 16, 8, 32, 0.0),
+    "strong-decay": (1, 2, 128, 16, 8, 16, 1.5),
+    "short-t10": (1, 2, 10, 64, 64, 64, 0.0),
+    "p64-n64": (2, 4, 200, 64, 64, 64, 0.0),
+}
+
+
+def _ssd(seed, b, h, t, p, n, sharpen, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    x = f32(rng.standard_normal((b, h, t, p))).to(dtype)
+    raw = rng.standard_normal((b, h, t))
+    dt = np.maximum(raw, 0) + np.log1p(np.exp(-np.abs(raw)))
+    a = np.exp(-np.exp(rng.standard_normal((b, h, t)) - 1.0 + sharpen) * dt)
+    B = f32(rng.standard_normal((b, t, n))).to(dtype)
+    C = f32(rng.standard_normal((b, t, n))).to(dtype)
+    return x, f32(dt), f32(a), B, C, f32(0.1 * rng.standard_normal((b, h, p, n)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("name", list(SSD_SHAPES))
+def test_ssd_kernel_matches_plain_version_on_card(cuda, name, dtype, tol):
+    b, h, t, p, n, chunk, sharpen = SSD_SHAPES[name]
+    args = _ssd(13, b, h, t, p, n, sharpen, cuda, dtype)
+    before = K4.launches
+    got_y, got_s = K4.ssd_cuda(*args, chunk=chunk)
+    again_y, again_s = K4.ssd_cuda(*args, chunk=chunk)
+    want_y, want_s = K4.ssd_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K4.launches == before + 2
+    assert torch.equal(got_y, again_y) and torch.equal(got_s, again_s)
+    assert got_y.dtype == dtype and got_s.dtype == torch.float32
+    torch.testing.assert_close(got_y.float(), want_y.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reads_model_layout_views_on_card(cuda):
+    """The adapter's (b, h, t, *) views of (b, t, h, *) storage: the same
+    bits as contiguous inputs, y in (b, t, h, p)."""
+    x, dt, a, B, C, s0 = _ssd(14, 2, 4, 70, 64, 64, 0.0, cuda)
+    want_y, want_s = K4.ssd_cuda(x, dt, a, B, C, s0)
+    to_bt = lambda v: v.transpose(1, 2).contiguous()
+    got_y, got_s = ssd_chunked(to_bt(x), to_bt(dt), to_bt(a), B, C, s0)
+    torch.cuda.synchronize()
+    assert got_y.is_contiguous() and got_y.shape == (2, 70, 4, 64)
+    assert torch.equal(got_y, want_y.transpose(1, 2)) and torch.equal(got_s, want_s)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    args = _ssd(15, 1, 2, 40, 48, 16, 0.0, cuda)
+    with pytest.raises(ValueError, match="p=48"):
+        K4.ssd_cuda(*args)
+    x, dt, a, B, C, s0 = _ssd(15, 1, 2, 100, 16, 8, 0.0, cuda)
+    with pytest.raises(ValueError, match="chunk length 48"):
+        K4.ssd_cuda(x, dt, a, B, C, s0, chunk=48)
+    with pytest.raises(TypeError, match="f32 dt"):
+        K4.ssd_cuda(x, dt.to(torch.bfloat16), a, B, C, s0)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        K4.ssd_cuda(x.half(), dt, a, B.half(), C.half(), s0)
+    with pytest.raises(ValueError, match="different devices"):
+        K4.ssd_chunked_bhtp(x, dt.cpu(), a, B, C, s0)
+
+
+@pytest.mark.cuda
+def test_zamba_prefill_with_kernels_matches_plain_routes_on_card(cuda):
+    cfg = dataclasses.replace(configs.get_smoke("zamba2_2b7"), dtype="float32",
+                              head_dim=32)
+    params = init_model(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    tok = torch.from_numpy(
+        np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 150))).to(cuda)
+    k2, k4 = K.launches, K4.launches
+    got = make_prefill_step(cfg, use_flash=True, use_scan_kernel=True)(
+        params, {"tokens": tok})
+    assert K4.launches == k4 + cfg.num_layers
+    assert K.launches == k2 + cfg.num_layers // cfg.shared_attn_period
     want = make_prefill_step(cfg)(params, {"tokens": tok})
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)

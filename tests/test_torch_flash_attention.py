@@ -4,9 +4,10 @@ kernel K2 beside its plain version) against the JAX reference
 
 * on the CPU: the plain version against the reference's Pallas kernel in
   interpret mode on shapes of tests/test_kernels.py (MHA, GQA 2:1, MQA,
-  3 blocks, ragged q) and a window, f32 at atol=rtol=2e-5 (the sums run in
-  another order than XLA's; the reference's own tests hold its kernel to
-  its oracle at the same tolerance), one bf16 case at atol 2e-2 (one bf16
+  3 blocks, ragged q), head dim 80 (zamba2's) and a window, f32 at
+  atol=rtol=2e-5 (the sums run in another order than XLA's; the
+  reference's own tests hold its kernel to its oracle at the same
+  tolerance), one bf16 case at atol 2e-2 (one bf16
   rounding of the output); a causal call with more queries than keys
   (80 against 48, ragged: the reference's zero-padded keys count); the
   ported oracle against the reference's;
@@ -38,6 +39,7 @@ SHAPES = {  # b, h, kvh, s, hd, block_q, block_kv  (tests/test_kernels.py)
     "mqa": (1, 8, 1, 128, 32, 32, 64),
     "3-block": (2, 2, 2, 96, 32, 32, 32),
     "ragged-q": (1, 2, 2, 80, 32, 32, 32),
+    "hd80": (1, 4, 2, 96, 80, 32, 32),   # zamba2's head dim (2560 / 32)
 }
 
 
@@ -53,7 +55,8 @@ def _t(*arrays, device="cpu", dtype=torch.float32):
     return [torch.from_numpy(a).to(device=device, dtype=dtype) for a in arrays]
 
 
-@pytest.mark.parametrize("name", ["mha", "gqa", "mqa", "3-block", "ragged-q"])
+@pytest.mark.parametrize("name", ["mha", "gqa", "mqa", "3-block", "ragged-q",
+                                  "hd80"])
 def test_plain_matches_jax_kernel(name):
     b, h, kvh, s, hd, bq, bkv = SHAPES[name]
     q, k, v = _qkv(0, b, h, kvh, s, hd)

@@ -94,21 +94,25 @@ def test_configs_equal_reference(name):
 def test_unported_architectures_and_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
         configs.get_config("gemma2-2b")
-    with pytest.raises(NotImplementedError, match="item 2 .zamba2, kernel K4"):
-        configs.get_smoke("zamba2-2.7b")
-    # rwkv6 and the ssm family are ported.
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        configs.get_smoke("llava-next-34b")
+    # rwkv6, zamba2 and the ssm and hybrid families are ported.
     assert configs.get_smoke("rwkv6-1.6b").family == "ssm"
     ssm = configs.get_smoke("rwkv6_1b6")
     assert set(init_cache(ssm, 1, 8, device="cpu")) == {"S", "shift",
                                                         "cmix_shift"}
+    hybrid = configs.get_smoke("zamba2-2.7b")
+    assert hybrid.family == "hybrid"
+    assert set(init_cache(hybrid, 1, 8, device="cpu")) == {
+        "ssm", "conv_x", "conv_B", "conv_C", "shared_k", "shared_v"}
     with pytest.raises(KeyError):
         configs.get_config("nope")
     moe = dataclasses.replace(configs.get_smoke("olmo_1b"), family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
         init_model(moe, torch.Generator().manual_seed(0), device="cpu")
-    hybrid = dataclasses.replace(moe, family="hybrid")
-    with pytest.raises(NotImplementedError, match="item 2 .zamba2, kernel K4"):
-        init_cache(hybrid, 1, 8, device="cpu")
+    vlm = dataclasses.replace(moe, family="vlm")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        init_cache(vlm, 1, 8, device="cpu")
     encdec = dataclasses.replace(moe, family="encdec")
     with pytest.raises(NotImplementedError, match="'encdec'"):
         init_cache(encdec, 1, 8, device="cpu")
