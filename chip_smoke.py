@@ -24,22 +24,33 @@ script exits non-zero:
 5. K1 timing on inputs captured from the accel path, beside the bound of
    the work, and a short profile of the hfsp step;
 6. the flash attention kernel (K2) against its plain PyTorch version on
-   the card, f32 (atol = rtol = 2e-5) and bf16 (atol 2e-2), on the shapes
-   of tests/test_kernels.py, three windows, olmo-1b's (4, 16, 4096, 128),
-   starcoder2-3b's GQA (1, 24 -> 2, 2048, 128) and head dim 80 (a small
-   GQA case and zamba2-2.7b's (4, 32, 4096, 80)), with bitwise reruns and
-   the launch counter;
+   the card, f32 (the CUDA-core kernel ``flash_fwd``, atol = rtol = 2e-5)
+   and bf16 (the tensor-core kernel ``flash_tc``, both atol 2e-2 and
+   atol 4e-3 with rtol 1.6e-2), on the shapes of tests/test_kernels.py,
+   three windows, a window over eight 128-row kv tiles, a non-causal call,
+   olmo-1b's (4, 16, 4096, 128), starcoder2-3b's GQA (1, 24 -> 2, 2048,
+   128) and head dim 80 (a small GQA case and zamba2-2.7b's (4, 32, 4096,
+   80)), with bitwise reruns and both launch counters; at the three model
+   shapes, outputs of deliberately wrong attention (a kv tile dropped,
+   the diagonal key dropped past row 1024, the last kv tile dropped for
+   the last 128 rows of one head) must fail the bf16 tolerance;
 7. the serving path: olmo-1b at its published widths (16 layers, d_model
    2048, vocab 50304; random weights from ``--seed``) through
    ``make_prefill_step(use_flash=True, last_token_only=True)`` on 4 x 4096
-   prompt tokens in bf16, cold and warm (16 K2 launches per prefill), a
-   profile of one prefill, then ``greedy_generate`` for 4 requests of 64
-   prompt and 32 new tokens;
+   prompt tokens in bf16, cold and warm (16 launches of the tensor-core
+   K2 per prefill and none of the CUDA-core one, by counter and by name in
+   the profile), a profile of one prefill, then ``greedy_generate`` for 4
+   requests of 64 prompt and 32 new tokens;
 8. serving cross-checks in f32 on the same weights: prefill logits with K2
-   against the plain version (atol 1e-3), and the last prompt position's
-   prefill logits against the decode-cache route's (atol 1e-3);
+   (its f32 route) against the plain version (atol 1e-3), and the last
+   prompt position's prefill logits against the decode-cache route's (atol
+   1e-3); then in bf16 on 1 x 1024: prefill logits with the tensor-core K2
+   against the same prefill through K2's plain version, within 2e-2 of
+   max |logit|;
 9. K2 timing at the olmo shape beside its bound, the plain version and
-   ``F.scaled_dot_product_attention`` (timed only, never on the path);
+   ``F.scaled_dot_product_attention`` (timed only, never on the path): its
+   achieved TFLOP/s, share of the bound and ratio to SDPA, and the f32
+   route's time on the same inputs in f32;
 10. the RWKV6 WKV scan kernel (K3) against its plain PyTorch version on
     the card, f32 output and state at atol = rtol = 1e-4 and bf16 r/k/v
     (f32 w) at atol = rtol = 2e-2, on the shapes of tests/test_kernels.py,
@@ -71,7 +82,8 @@ script exits non-zero:
     2,340,750,240 parameters, random from ``--seed``) through
     ``make_prefill_step(use_flash=True, use_scan_kernel=True,
     last_token_only=True)`` on 4 x 4096 prompt tokens in bf16, cold and
-    warm (54 K4 and 9 K2 launches per prefill), profiles of a prefill and
+    warm (54 K4 and 9 tensor-core K2 launches per prefill, none of the
+    CUDA-core K2), profiles of a prefill and
     a decode step, then ``greedy_generate`` for 4 requests of 64 prompt
     and 32 new tokens;
 16. zamba2 cross-checks in f32 on the same weights: 1 x 1024 prefill
@@ -82,7 +94,7 @@ script exits non-zero:
 17. K4 timing at the zamba2 shape beside its bound and the plain version
     (no single PyTorch call computes the scan, so no library time), and
     K2 at zamba2's head dim 80 beside its bound, its plain version and
-    ``F.scaled_dot_product_attention``;
+    ``F.scaled_dot_product_attention``, with the same fields as phase 9;
 18. the ``{"kernels": [...]}`` line (K1, K2, K3, K4), the card's name and
     power limit, and the final ``{"ok": true, ...}`` line.
 
@@ -185,7 +197,8 @@ def reset_counts() -> None:
     from repro_torch.kernels.rwkv6 import kernel as rk
     from repro_torch.kernels.ssd import kernel as sk
 
-    wf.launches = fk.launches = rk.launches = sk.launches = 0
+    wf.launches = fk.launches = fk.launches_tc = rk.launches = 0
+    sk.launches = 0
 
 
 def drop_wall(results: list[dict]) -> list[dict]:
@@ -533,26 +546,87 @@ def phase_kernel_timing(main_launches: int):
 # ---------------------------------------------------------------------------
 # Flash attention (K2) and the dense serving path
 # ---------------------------------------------------------------------------
-#: (name, b, h, kvh, s, hd, block_q, block_kv, window): the shapes of
-#: tests/test_kernels.py, its three windows, and the two model shapes.
+#: (name, b, h, kvh, s, hd, block_q, block_kv, window, causal): the shapes
+#: of tests/test_kernels.py, its three windows, a window that spans
+#: several of the tensor-core kernel's 128-row kv tiles (so that whole
+#: tiles before the window are skipped), a non-causal call, and the model
+#: shapes.
 FLASH_CASES = (
-    ("mha", 1, 2, 2, 64, 32, 32, 32, None),
-    ("gqa-2:1", 2, 4, 2, 128, 64, 64, 32, None),
-    ("mqa", 1, 8, 1, 128, 32, 32, 64, None),
-    ("3-block", 2, 2, 2, 96, 32, 32, 32, None),
-    ("ragged-q80", 1, 2, 2, 80, 32, 32, 32, None),
-    ("window16", 1, 2, 2, 128, 32, 32, 32, 16),
-    ("window48", 1, 2, 2, 128, 32, 32, 32, 48),
-    ("window100", 1, 2, 2, 128, 32, 32, 32, 100),
-    ("olmo-1b", 4, 16, 16, 4096, 128, 512, 512, None),
-    ("starcoder2-3b", 1, 24, 2, 2048, 128, 512, 512, None),
-    ("hd80", 1, 4, 2, 96, 80, 32, 32, None),
-    ("zamba2-2.7b", 4, 32, 32, 4096, 80, 512, 512, None),
+    ("mha", 1, 2, 2, 64, 32, 32, 32, None, True),
+    ("gqa-2:1", 2, 4, 2, 128, 64, 64, 32, None, True),
+    ("mqa", 1, 8, 1, 128, 32, 32, 64, None, True),
+    ("3-block", 2, 2, 2, 96, 32, 32, 32, None, True),
+    ("ragged-q80", 1, 2, 2, 80, 32, 32, 32, None, True),
+    ("window16", 1, 2, 2, 128, 32, 32, 32, 16, True),
+    ("window48", 1, 2, 2, 128, 32, 32, 32, 48, True),
+    ("window100", 1, 2, 2, 128, 32, 32, 32, 100, True),
+    ("window300-8tiles", 1, 4, 2, 1024, 64, 128, 128, 300, True),
+    ("non-causal", 1, 4, 2, 384, 64, 128, 128, None, False),
+    ("olmo-1b", 4, 16, 16, 4096, 128, 512, 512, None, True),
+    ("starcoder2-3b", 1, 24, 2, 2048, 128, 512, 512, None, True),
+    ("hd80", 1, 4, 2, 96, 80, 32, 32, None, True),
+    ("zamba2-2.7b", 4, 32, 32, 4096, 80, 512, 512, None, True),
 )
-#: dtype -> (atol, rtol) of K2 against its plain version: f32 sums in
-#: another order; bf16 adds one rounding of the output.
-FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 0.0)}
+#: dtype -> the (atol, rtol) pairs K2 must meet against its plain
+#: version, each elementwise: f32 sums in another order; bf16 rounds P
+#: before P V (at most 2**-9 of each term, which matters where a row of
+#: few keys cancels to near 0) and rounds the output once (one bf16 step
+#: is at most 2**-7 of the value).  The bf16 route is held to atol 2e-2
+#: and, tighter at the small outputs of late causal rows, to atol 4e-3 with
+#: rtol 1.6e-2 (two bf16 steps).
+FLASH_TOL = {torch.float32: ((2e-5, 2e-5),),
+             torch.bfloat16: ((2e-2, 0.0), (4e-3, 1.6e-2))}
+#: dtype -> the K2 kernel that takes it (its name in the profiles).
+KERNEL_OF = {torch.float32: "flash_fwd", torch.bfloat16: "flash_tc"}
 SERVE_TOL = 1e-3  # f32 logits, kernel vs plain and prefill vs decode route
+#: bf16 logits with K2 against the plain version, as a share of max |logit|:
+#: P in bf16 and bf16 activations through 16 layers.
+SERVE_TOL_BF16 = 2e-2
+
+
+def tol_ratio(got, want, tols) -> float:
+    """The largest ``|got - want| / (atol + rtol |want|)`` over the
+    elements and the (atol, rtol) pairs ``tols``: at most 1 where every
+    pair holds."""
+    diff = (got.float() - want.float()).abs()
+    return max((diff / (atol + rtol * want.float().abs())).max().item()
+               for atol, rtol in tols)
+
+
+def wrong_attention(q, k, v, scale, drop) -> torch.Tensor:
+    """Causal attention of bf16 q, k, v with the extra (head, row, key)
+    pairs of ``drop(h, s)`` (a bool mask) masked as well, in f32, one
+    batch row at a time, rounded to the input dtype: the output of a
+    kernel with that fault."""
+    b, h, s, _ = q.shape
+    pos = torch.arange(s, device=q.device)
+    keep = (pos[None, :] <= pos[:, None]) & ~drop(h, s, pos)
+    groups = h // k.shape[1]
+    out = torch.empty_like(q)
+    for i in range(b):
+        kf = k[i].float().repeat_interleave(groups, 0)
+        vf = v[i].float().repeat_interleave(groups, 0)
+        scores = (q[i].float() @ kf.transpose(-1, -2)) * scale
+        scores.masked_fill_(~keep, float("-inf"))
+        out[i] = (torch.softmax(scores, dim=-1) @ vf).to(q.dtype)
+        del scores
+    return out
+
+
+#: name -> the extra (head, row, key) pairs a faulty kernel would mask,
+#: as a function of (h, s, positions): the faults a loose bf16 tolerance
+#: would let through at the model shapes, where late causal rows average
+#: over thousands of keys to outputs of ~0.03.
+WRONG_KERNELS = {
+    "kv tile 8 dropped": lambda h, s, pos: (
+        (pos[None, :] >= 1024) & (pos[None, :] < 1152)).expand(h, s, s),
+    "diagonal key dropped from row 1024": lambda h, s, pos: (
+        (pos[None, :] == pos[:, None]) & (pos[:, None] >= 1024)).expand(
+            h, s, s),
+    "last kv tile dropped, last 128 rows of head 0": lambda h, s, pos: (
+        (torch.arange(h, device=pos.device)[:, None, None] == 0)
+        & (pos[:, None] >= s - 128) & (pos[None, :] >= s - 128)),
+}
 
 
 def flash_inputs(gen, b, h, kvh, s, hd, dtype):
@@ -582,30 +656,49 @@ def phase_flash_kernel_vs_plain(seed: int):
     from repro_torch.kernels.flash_attention import kernel as fk
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for dtype, (atol, rtol) in FLASH_TOL.items():
-        for name, b, h, kvh, s, hd, bq, bkv, window in FLASH_CASES:
+    for dtype, tols in FLASH_TOL.items():
+        for name, b, h, kvh, s, hd, bq, bkv, window, causal in FLASH_CASES:
             q, k, v = flash_inputs(gen, b, h, kvh, s, hd, dtype)
-            kw = dict(scale=hd ** -0.5, window=window, block_q=bq,
-                      block_kv=bkv)
-            before = fk.launches
+            kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+                      block_q=bq, block_kv=bkv)
+            before, before_tc = fk.launches, fk.launches_tc
             got = fk.flash_attention_cuda(q, k, v, **kw)
             again = fk.flash_attention_cuda(q, k, v, **kw)
             want = fk.flash_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
-            if fk.launches != before + 2:
-                raise AssertionError(f"{name}: launch counter did not advance")
+            tc = 2 if dtype == torch.bfloat16 else 0
+            if (fk.launches, fk.launches_tc) != (before + 2, before_tc + tc):
+                raise AssertionError(f"{name} {dtype}: launch counters did "
+                                     "not advance by route")
             if not torch.equal(got, again):
                 raise AssertionError(f"{name}: kernel rerun not bitwise equal")
-            diff = (got.float() - want.float()).abs()
-            err = diff.max().item()
-            if not bool((diff <= atol + rtol * want.float().abs()).all()):
+            err = (got.float() - want.float()).abs().max().item()
+            ratio = tol_ratio(got, want, tols)
+            if not ratio <= 1.0:
                 raise AssertionError(
-                    f"{name} {dtype}: kernel != plain version "
-                    f"(max abs err {err}, atol {atol}, rtol {rtol})")
+                    f"{name} {dtype}: kernel != plain version (max abs err "
+                    f"{err}, {ratio} of the (atol, rtol) bound {tols})")
+            wrong = {}
+            if dtype == torch.bfloat16 and s >= 2048:
+                for fault, drop in WRONG_KERNELS.items():
+                    bad = wrong_attention(q, k, v, kw["scale"], drop)
+                    wrong[fault] = {
+                        "max_abs_err": (bad.float() - want.float()).abs()
+                        .max().item(),
+                        "tol_ratio": tol_ratio(bad, want, tols),
+                        "tol_ratio_atol_2e-2_only":
+                            tol_ratio(bad, want, tols[:1])}
+                    if not wrong[fault]["tol_ratio"] > 1.0:
+                        raise AssertionError(
+                            f"{name}: the bf16 tolerance {tols} lets a "
+                            f"kernel with a fault through ({fault})")
+                    del bad
             emit("flash_kernel_vs_plain", case=name,
                  dtype=str(dtype).replace("torch.", ""),
-                 shape=[b, h, kvh, s, hd], window=window, max_abs_err=err,
-                 atol=atol, rtol=rtol, rerun_bitwise_equal=True)
+                 kernel=KERNEL_OF[dtype], shape=[b, h, kvh, s, hd],
+                 window=window, causal=causal, max_abs_err=err,
+                 tolerances=tols, tol_ratio=ratio, rerun_bitwise_equal=True,
+                 **({"faulty_kernels_vs_plain": wrong} if wrong else {}))
 
 
 @contextlib.contextmanager
@@ -626,7 +719,7 @@ def profile_device(fn, steps: int, shares: dict[str, str]):
     """Device time by kernel over ``steps`` calls of ``fn()``, the
     device's busy share of their wall, and for each ``share: kernel`` of
     ``shares`` the share of device time of the kernels whose name holds
-    ``kernel``."""
+    ``kernel`` and (``launches_by_kernel``) their launches per step."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -647,6 +740,9 @@ def profile_device(fn, steps: int, shares: dict[str, str]):
         for share, kernel in shares.items()}
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:6]
     return {
+        "launches_by_kernel": {
+            kernel: sum(ev.count for ev in kernels if kernel in ev.key) / steps
+            for kernel in shares.values()},
         "steps": steps,
         "wall_ms_per_step": wall * 1e3 / steps,
         "device_ms_per_step": total_us / 1e3 / steps if measured
@@ -660,6 +756,16 @@ def profile_device(fn, steps: int, shares: dict[str, str]):
     }
 
 
+def k2_counts(fk, per_prefill: int) -> dict:
+    """K2's entries of ``serve_main_path``'s ``kernels`` on a bf16 path:
+    ``per_prefill`` launches of the tensor-core kernel (``flash_tc``) and
+    none of the CUDA-core one (``flash_fwd``, the f32 route)."""
+    return {"k2": (lambda: fk.launches_tc, KERNEL_OF[torch.bfloat16],
+                   per_prefill),
+            "k2_cuda_core": (lambda: fk.launches - fk.launches_tc,
+                             KERNEL_OF[torch.float32], 0)}
+
+
 def serve_main_path(phase: str, arch: str, seed: int, kernels: dict,
                     **prefill_kw):
     """Serve ``arch`` at its published widths (bf16 activations, random
@@ -667,10 +773,11 @@ def serve_main_path(phase: str, arch: str, seed: int, kernels: dict,
     ``make_prefill_step(**prefill_kw, last_token_only=True)``, cold and
     warm, then ``greedy_generate`` for 4 requests of 64 prompt and 32 new
     tokens, with every launch count set to 0 just before and read just
-    after.  ``kernels`` maps a tag to (kernel module with its
-    ``launches``, the kernel's name in the profile, launches each prefill
-    must make).  Then profiles of a prefill and a decode step, with each
-    kernel's share of device time as ``<tag>_share_of_device``.  Emits
+    after.  ``kernels`` maps a tag to (a function reading the kernel's
+    launch count, the kernel's name in the profile, launches each prefill
+    must make, by the count and by name in the profile).  Then profiles of
+    a prefill and a decode step, with each kernel's share of device time
+    as ``<tag>_share_of_device``.  Emits
     ``phase`` and returns (cfg, params, {tag: launches}, {tag: launches
     per prefill})."""
     from repro_torch.configs import get_config
@@ -700,18 +807,18 @@ def serve_main_path(phase: str, arch: str, seed: int, kernels: dict,
     walls = []
     per_prefill = {tag: [] for tag in kernels}
     for _ in range(2):  # cold, warm
-        before = {tag: mod.launches for tag, (mod, _, _) in kernels.items()}
+        before = {tag: count() for tag, (count, _, _) in kernels.items()}
         t0 = time.perf_counter()
         logits = prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        for tag, (mod, _, _) in kernels.items():
-            per_prefill[tag].append(mod.launches - before[tag])
+        for tag, (count, _, _) in kernels.items():
+            per_prefill[tag].append(count() - before[tag])
     t0 = time.perf_counter()
     out = greedy_generate(cfg, params, prompts, 32)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = {tag: mod.launches for tag, (mod, _, _) in kernels.items()}
+    launches = {tag: count() for tag, (count, _, _) in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     for tag, (_, _, expected) in kernels.items():
@@ -728,6 +835,15 @@ def serve_main_path(phase: str, arch: str, seed: int, kernels: dict,
               for tag, (_, name, _) in kernels.items()}
     prof_prefill = profile_device(lambda: prefill(params, {"tokens": tokens}),
                                   steps=1, shares=shares)
+    if prof_prefill["device_ms_per_step"] == "not measured":
+        raise AssertionError("the profiler saw no device time in the "
+                             "prefill, so the launches by kernel name "
+                             "cannot be checked")
+    for tag, (_, name, expected) in kernels.items():
+        seen = prof_prefill["launches_by_kernel"][name]
+        if seen != expected:
+            raise AssertionError(f"the profiled prefill launched {name} "
+                                 f"{seen} times, expected {expected}")
     # Decode steps of the greedy loop's shape: 4 rows at position 63 of a
     # 96-slot cache (the ssm family's state does not grow).
     step = make_decode_step(cfg)
@@ -758,8 +874,7 @@ def phase_serve_main_path(seed: int):
     from repro_torch.kernels.flash_attention import kernel as fk
 
     cfg, params, launches, per_prefill = serve_main_path(
-        "serve_main_path", "olmo_1b", seed,
-        {"k2": (fk, "flash_fwd", 16)}, use_flash=True)
+        "serve_main_path", "olmo_1b", seed, k2_counts(fk, 16), use_flash=True)
     return cfg, params, launches["k2"], per_prefill["k2"]
 
 
@@ -774,11 +889,12 @@ def phase_serve_crosscheck(cfg, params, seed: int):
     b, s = 2, 300  # ragged against the kernel's 64-row tiles
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                            device="cuda")
-    before = fk.launches
+    before, before_tc = fk.launches, fk.launches_tc
     flash = make_prefill_step(cfg32, use_flash=True)(params, {"tokens": tokens})
     torch.cuda.synchronize()
-    if fk.launches - before != cfg.num_layers:
-        raise AssertionError("f32 prefill did not run K2 in every layer")
+    if (fk.launches - before, fk.launches_tc) != (cfg.num_layers, before_tc):
+        raise AssertionError("f32 prefill did not run K2's f32 route in "
+                             "every layer")
     with plain_route(fops, "flash_attention_bhsd", fk.flash_attention_plain):
         plain = make_prefill_step(cfg32, use_flash=True)(
             params, {"tokens": tokens})
@@ -806,6 +922,57 @@ def phase_serve_crosscheck(cfg, params, seed: int):
          prefill_last_vs_decode_route_max_abs_err=err_decode)
 
 
+def phase_serve_crosscheck_bf16(cfg, params, seed: int):
+    """olmo-1b's bf16 prefill logits on 1 x 1024 with K2's tensor-core
+    kernel against the same prefill through K2's plain version."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.serve import make_prefill_step
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen,
+                           device="cuda")
+    before_tc = fk.launches_tc
+    kern = make_prefill_step(cfg, use_flash=True)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    if fk.launches_tc - before_tc != cfg.num_layers:
+        raise AssertionError("bf16 prefill did not run the tensor-core K2 in "
+                             "every layer")
+    with plain_route(fops, "flash_attention_bhsd", fk.flash_attention_plain):
+        plain = make_prefill_step(cfg, use_flash=True)(params,
+                                                      {"tokens": tokens})
+    torch.cuda.synchronize()
+    err = (kern.float() - plain.float()).abs().max().item()
+    scale = plain.float().abs().max().item()
+    print(f"bf16 olmo-1b prefill, tensor-core K2 vs plain: max abs err {err} "
+          f"(max |logit| {scale})", flush=True)
+    if not err <= SERVE_TOL_BF16 * scale:
+        raise AssertionError(f"bf16 prefill with K2 vs its plain version: max "
+                             f"abs err {err} > {SERVE_TOL_BF16} x {scale}")
+    emit("serve_crosscheck_bf16", dtype="bfloat16", batch=[1, 1024],
+         logits_abs_max=scale, k2_vs_plain_max_abs_err=err,
+         tol_share_of_max=SERVE_TOL_BF16)
+
+
+def flash_speed(fk, q, k, v, kw, library_ms: float, dtype) -> dict:
+    """The fields of a K2 timing entry: the tensor-core kernel's time,
+    achieved rate, share of the bound, ratio to the library call, and the
+    f32 route's time on the same inputs in f32."""
+    b, h, s, hd = q.shape
+    ms = cuda_ms(lambda: fk.flash_attention_cuda(q, k, v, **kw), 10)
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    ms_f32 = cuda_ms(lambda: fk.flash_attention_cuda(q32, k32, v32, **kw), 3)
+    bound_ms, bound_by, nbytes, flops = flash_bound(b, h, k.shape[1], s, hd,
+                                                    dtype)
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "bytes_per_call": nbytes,
+            "flops_per_call": flops,
+            "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+            "share_of_bound": bound_ms / ms,
+            "ratio_to_library": ms / library_ms,
+            "ms_float32_inputs": ms_f32}
+
+
 def phase_flash_timing(seed: int, serve_launches: int, per_prefill: int):
     import torch.nn.functional as F
 
@@ -820,32 +987,24 @@ def phase_flash_timing(seed: int, serve_launches: int, per_prefill: int):
     want = fk.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     max_err = (got.float() - want.float()).abs().max().item()
-    ms = cuda_ms(lambda: fk.flash_attention_cuda(q, k, v, **kw), 5)
-    q32, k32, v32 = (x.float() for x in (q, k, v))
-    ms_f32 = cuda_ms(lambda: fk.flash_attention_cuda(q32, k32, v32, **kw), 5)
     plain_ms = cuda_ms(lambda: fk.flash_attention_plain(q, k, v, **kw), 2)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True, scale=kw["scale"]), 5)
-    bound_ms, bound_by, nbytes, flops = flash_bound(b, h, kvh, s, hd, dtype)
+        q, k, v, is_causal=True, enable_gqa=True, scale=kw["scale"]), 10)
     entry = {
         "name": "flash_attention",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_tc.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
         "launches": serve_launches,
         "max_abs_err": max_err,
-        "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+        **flash_speed(fk, q, k, v, kw, library_ms, dtype),
+        "tensor_cores": "wgmma, K/V by TMA (the bf16 route)",
+        "float32_route_source":
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "shape": [b, h, kvh, s, hd],
         "dtype": "bfloat16",
         "launches_per_prefill": per_prefill,
-        "bytes_per_call": nbytes,
-        "flops_per_call": flops,
-        "achieved_tflops": flops / (ms * 1e-3) / 1e12,
-        "ms_float32_inputs": ms_f32,
     }
     emit("flash_timing", **entry)
     return entry
@@ -953,7 +1112,7 @@ def phase_rwkv_serve_main_path(seed: int):
 
     cfg, params, launches, per_prefill = serve_main_path(
         "rwkv_serve_main_path", "rwkv6_1b6", seed,
-        {"k3": (rk, "rwkv6_fwd", 24)}, use_scan_kernel=True)
+        {"k3": (lambda: rk.launches, "rwkv6_fwd", 24)}, use_scan_kernel=True)
     n_params = sum(p.numel() for p in params.parameters())
     print(f"rwkv6-1.6b parameters: {n_params}", flush=True)
     if n_params != RWKV_PARAMS:
@@ -1177,7 +1336,7 @@ def phase_zamba_serve_main_path(seed: int):
 
     cfg, params, launches, per_prefill = serve_main_path(
         "zamba_serve_main_path", "zamba2_2b7", seed,
-        {"k4": (sk, "ssd_fwd", 54), "k2": (fk, "flash_fwd", 9)},
+        {"k4": (lambda: sk.launches, "ssd_fwd", 54), **k2_counts(fk, 9)},
         use_flash=True, use_scan_kernel=True)
     n_params = sum(p.numel() for p in params.parameters())
     print(f"zamba2-2.7b parameters: {n_params}", flush=True)
@@ -1312,18 +1471,13 @@ def phase_flash_timing_hd80(seed: int, serve_launches: int,
     want = fk.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     max_err = (got.float() - want.float()).abs().max().item()
-    ms = cuda_ms(lambda: fk.flash_attention_cuda(q, k, v, **kw), 5)
     plain_ms = cuda_ms(lambda: fk.flash_attention_plain(q, k, v, **kw), 2)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=kw["scale"]), 5)
-    bound_ms, bound_by, nbytes, flops = flash_bound(b, h, kvh, s, hd, dtype)
+        q, k, v, is_causal=True, scale=kw["scale"]), 10)
     entry = {"shape": [b, h, kvh, s, hd], "dtype": "bfloat16",
              "launches": serve_launches, "launches_per_prefill": per_prefill,
-             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by,
-             "library_ms": library_ms, "bytes_per_call": nbytes,
-             "flops_per_call": flops,
-             "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+             "max_abs_err": max_err, "plain_ms": plain_ms,
+             **flash_speed(fk, q, k, v, kw, library_ms, dtype)}
     emit("flash_timing_hd80", **entry)
     return entry
 
@@ -1365,6 +1519,8 @@ def main() -> int:
         "serve_main_path", phase_serve_main_path, args.seed)
     run_phase("serve_crosscheck", phase_serve_crosscheck, cfg, params,
               args.seed)
+    run_phase("serve_crosscheck_bf16", phase_serve_crosscheck_bf16, cfg,
+              params, args.seed)
     del params
     k2 = run_phase("flash_timing", phase_flash_timing, args.seed,
                    serve_launches, per_prefill)

@@ -2,12 +2,15 @@
 
 Every kernel of the port is one ``csrc/<name>.cu`` file beside the module
 that wraps it, listed in :data:`KERNELS` with the flags it needs beyond
-the common ones.  Each exposes a plain C interface and is compiled on
-first use into ``build/repro_torch/lib<name>-<hash>.so`` at the root of
-the checkout (git-ignored).  The file name carries a hash of the source
-and the flags, so an edited source is rebuilt and never mixed up with a
-stale library.  Nothing here runs at import time: a machine without
-``nvcc`` (the CPU test hosts) can import every module of the port.
+the common ones; headers it includes sit beside it in ``csrc/``.  Each
+exposes a plain C interface and is compiled on first use into
+``build/repro_torch/lib<name>-<hash>.so`` at the root of the checkout
+(git-ignored).  The file name carries a hash of the source, of the
+headers beside it in its ``csrc/`` directory and of the flags, so an
+edited source or header is rebuilt and never mixed up with a stale
+library.  Nothing here
+runs at import time: a machine without ``nvcc`` (the CPU test hosts) can
+import every module of the port.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ COMMON_FLAGS = (
 KERNELS: dict[str, tuple[str, tuple[str, ...]]] = {
     "waterfill": ("accel/csrc/waterfill.cu", ("-fmad=false",)),
     "flash_attention": ("kernels/flash_attention/csrc/flash_attention.cu", ()),
+    "flash_attention_tc": (
+        "kernels/flash_attention/csrc/flash_attention_tc.cu", ()),
     "rwkv6": ("kernels/rwkv6/csrc/rwkv6.cu", ()),
     "ssd": ("kernels/ssd/csrc/ssd.cu", ()),
 }
@@ -67,9 +72,17 @@ def _source_and_flags(name: str) -> tuple[Path, tuple[str, ...]]:
 
 
 def lib_path(name: str) -> Path:
+    """The library of kernel ``name``, named by a hash of its source, of
+    the headers beside it in its ``csrc/`` directory (every file there but
+    the ``.cu`` sources, each of which is a library of its own) and of its
+    flags."""
     src, flags = _source_and_flags(name)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for dep in sorted(p for p in src.parent.iterdir()
+                      if p.is_file() and p.suffix != ".cu"):
+        h.update(dep.name.encode() + b"\0" + dep.read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:

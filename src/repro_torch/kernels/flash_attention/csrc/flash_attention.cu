@@ -1,11 +1,11 @@
-// Causal / sliding-window flash attention with GQA (Hopper, sm_90a).
+// Causal / sliding-window flash attention with GQA (Hopper, sm_90a), the
+// f32 route: f32 CUDA-core arithmetic for f32 q, k, v.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py::
-// _flash_kernel (reached through flash_attention_bhsd): blockwise
-// online-softmax attention of q (b, h, sq, hd) against k/v
-// (b, kvh, skv, hd), kv_head = h / (h / kvh).  Scores, the running max m,
-// the running sum l and the accumulator are f32; inputs are f32 or bf16
-// and the output is in the input dtype.
+// _flash_kernel (reached through flash_attention_bhsd) on f32 inputs:
+// blockwise online-softmax attention of q (b, h, sq, hd) against k/v
+// (b, kvh, skv, hd), kv_head = h / (h / kvh), all in f32.  bf16 inputs go
+// to the tensor-core kernel of flash_attention_tc.cu.
 //
 // Design
 // * One thread block per (q tile of 64 rows, head, batch); 256 threads as
@@ -15,9 +15,9 @@
 //   largest of 4, 2 and 1 that divides hd / 16 (scalar for hd 80).  m, l
 //   and the accumulator of its rows stay in registers through the kv loop.
 // * The block walks kv tiles of 64 rows.  Q is staged once in shared
-//   memory as f32; each K tile, then each V tile, is staged in one shared
-//   buffer (converted to f32 on the way in); the tile's probabilities go
-//   through shared memory from the S = Q K^T layout to the P V layout.
+//   memory; each K tile, then each V tile, is staged in one shared
+//   buffer; the tile's probabilities go through shared memory from the
+//   S = Q K^T layout to the P V layout.
 //   Row maxima and sums are reduced across the 16 threads of a row with
 //   warp shuffles.  Rows are padded by 4 floats so that the float4 reads
 //   of 8 consecutive rows hit 32 distinct banks.
@@ -34,14 +34,12 @@
 //   reference; the output is acc / max(l, 1e-30).
 // * No atomics and a fixed order of every sum: reruns are bitwise equal.
 //
-// Bound on the card: at the main path's shape (4, 16, 4096, 128) causal,
-// the work is ~2.7e11 flops over ~0.3 GB, so the kernel is bound by
-// operations.  This kernel does them as f32 FMAs on the CUDA cores (peak
-// 67 TFLOP/s), not on the tensor cores (989 TFLOP/s bf16): wgmma/TMA
-// tiles are later work, and for f32 inputs the tensor cores would need
-// TF32, outside the f32 tolerance held against the plain version.
+// Bound on the card: at (4, 16, 4096, 128) causal the work is ~2.7e11
+// flops over ~0.5 GB of f32, so the kernel is bound by operations.  It
+// does them as f32 FMAs on the CUDA cores (peak 67 TFLOP/s): on the
+// tensor cores f32 inputs would need TF32, outside the f32 tolerance held
+// against the plain version.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,21 +63,6 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype
-}
-
 __device__ __forceinline__ float row_max16(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
@@ -94,10 +77,10 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-// Stage rows [r0, r0 + 64) of one head of x into dst (64 x (HD + pad),
-// f32); rows at or past n read as zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* x,
+// Stage rows [r0, r0 + 64) of one head of x into dst (64 x (HD + pad));
+// rows at or past n read as zero.
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* x,
                                           int64_t s_stride, int r0, int n) {
   constexpr int LD = HD + kRowPad;
 #pragma unroll 4
@@ -105,11 +88,11 @@ __device__ __forceinline__ void load_tile(float* dst, const T* x,
     const int r = e / HD, c = e % HD;
     const int row = r0 + r;
     dst[r * LD + c] =
-        row < n ? to_f32(x[static_cast<int64_t>(row) * s_stride + c]) : 0.f;
+        row < n ? x[static_cast<int64_t>(row) * s_stride + c] : 0.f;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Params p) {
   constexpr int LD = HD + kRowPad;
   constexpr int CW = HD / 16;            // output columns per thread
@@ -132,12 +115,12 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Params p) {
   const int kh = hh / p.groups;
   const int q0 = qi * kBQ;
 
-  const T* qg = static_cast<const T*>(p.q) + bb * p.q_b + hh * p.q_h;
-  const T* kg = static_cast<const T*>(p.k) + bb * p.k_b + kh * p.k_h;
-  const T* vg = static_cast<const T*>(p.v) + bb * p.v_b + kh * p.v_h;
-  T* og = static_cast<T*>(p.o) + bb * p.o_b + hh * p.o_h;
+  const float* qg = static_cast<const float*>(p.q) + bb * p.q_b + hh * p.q_h;
+  const float* kg = static_cast<const float*>(p.k) + bb * p.k_b + kh * p.k_h;
+  const float* vg = static_cast<const float*>(p.v) + bb * p.v_b + kh * p.v_h;
+  float* og = static_cast<float*>(p.o) + bb * p.o_b + hh * p.o_h;
 
-  load_tile<T, HD>(qs, qg, p.q_s, q0, p.sq);
+  load_tile<HD>(qs, qg, p.q_s, q0, p.sq);
 
   float acc[4][CW];
   float m_row[4], l_row[4];
@@ -163,7 +146,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Params p) {
     if (p.window > 0 && q0 - (k0 + kBKV - 1) >= p.window) continue;
 
     __syncthreads();  // Q staged; the previous tile's V and P reads done
-    load_tile<T, HD>(kvs, kg, p.k_s, k0, p.skv);
+    load_tile<HD>(kvs, kg, p.k_s, k0, p.skv);
     __syncthreads();
 
     // S = Q K^T for rows ty + 16 i, columns tx + 16 j.
@@ -227,7 +210,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Params p) {
     }
 
     __syncthreads();  // K reads done and P written
-    load_tile<T, HD>(kvs, vg, p.v_s, k0, p.skv);
+    load_tile<HD>(kvs, vg, p.v_s, k0, p.skv);
     __syncthreads();
 
     // acc += P V.
@@ -276,12 +259,12 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Params p) {
     const int row = q0 + ty + 16 * i;
     if (row >= p.sq) continue;
     const float l = fmaxf(l_row[i], 1e-30f);
-    T* orow = og + static_cast<int64_t>(row) * p.o_s;
+    float* orow = og + static_cast<int64_t>(row) * p.o_s;
 #pragma unroll
     for (int n = 0; n < NV; ++n)
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        orow[tx * VEC + 16 * VEC * n + e] = from_f32<T>(acc[i][VEC * n + e] / l);
+        orow[tx * VEC + 16 * VEC * n + e] = acc[i][VEC * n + e] / l;
   }
 }
 
@@ -290,43 +273,32 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * ((kBQ + kBKV) * (HD + kRowPad) + kBQ * kLdP);
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const Params& p, int b, int h, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<HD>();
   static bool configured = false;  // per instantiation, on first launch
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((p.sq + kBQ - 1) / kBQ, h, b);
-  flash_fwd<T, HD><<<grid, kThreads, bytes, stream>>>(p);
+  flash_fwd<HD><<<grid, kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_hd(const Params& p, int hd, int b, int h, cudaStream_t stream) {
-  switch (hd) {
-    case 32: return launch<T, 32>(p, b, h, stream);
-    case 64: return launch<T, 64>(p, b, h, stream);
-    case 80: return launch<T, 80>(p, b, h, stream);
-    case 128: return launch<T, 128>(p, b, h, stream);
-    default: return -1;
-  }
 }
 
 }  // namespace
 
 // strides: 12 element strides, (batch, head, seq) of q, k, v and o; the
-// head dim is contiguous in all four.  dtype 0 = f32, 1 = bf16.  Returns
-// a cudaError_t of the launch (0 on success), or -1 for an unsupported
-// head dim or dtype.
+// head dim is contiguous in all four; all four are f32.  Returns a
+// cudaError_t of the launch (0 on success), or -1 for an unsupported head
+// dim.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     const int64_t* strides, int b, int h, int kvh, int sq, int skv,
-    int skv_pad, int hd, int dtype, float scale, int causal, int window,
+    int skv_pad, int hd, float scale, int causal, int window,
     void* stream) {
   if (b <= 0 || h <= 0 || kvh <= 0 || h % kvh != 0 || sq <= 0) return -1;
   Params p;
@@ -346,7 +318,11 @@ extern "C" int repro_flash_attention_fwd(
   p.window = window;
   p.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_hd<float>(p, hd, b, h, s);
-  if (dtype == 1) return launch_hd<__nv_bfloat16>(p, hd, b, h, s);
-  return -1;
+  switch (hd) {
+    case 32: return launch<32>(p, b, h, s);
+    case 64: return launch<64>(p, b, h, s);
+    case 80: return launch<80>(p, b, h, s);
+    case 128: return launch<128>(p, b, h, s);
+    default: return -1;
+  }
 }

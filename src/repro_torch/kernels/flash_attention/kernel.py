@@ -7,13 +7,22 @@ by ``kv_head = q_head // (h // kvh)``, causal and sliding-window masks,
 kv blocks that are wholly masked skipped.  Max, sum and accumulator are
 f32; the output is in the input dtype.
 
-* :func:`flash_attention_cuda` launches ``csrc/flash_attention.cu`` (one
-  thread block per 64-row q tile, head and batch; K and V tiles staged in
-  shared memory; f32 CUDA-core arithmetic) on f32 or bf16 tensors with
-  ``hd`` in {32, 64, 80, 128}.  It reads the inputs through their
-  strides, so the model-layout adapter (:mod:`.ops`) passes transposed
-  views without copies, and it writes its output straight into the
-  ``(b, sq, h, hd)`` layout.
+* :func:`flash_attention_cuda` launches one of two kernels by dtype, with
+  no fallback from one to the other, on tensors with ``hd`` in {32, 64,
+  80, 128}:
+
+  - bf16: ``csrc/flash_attention_tc.cu``, both products on Hopper's
+    tensor cores (``wgmma``), K and V tiles brought by TMA through a
+    two-stage ring; P is rounded to bf16 before P V.  TMA reads the
+    inputs through their strides, which must be multiples of 16 bytes
+    (:func:`tma_layout` checks and raises);
+  - f32: ``csrc/flash_attention.cu`` (one thread block per 64-row q tile,
+    head and batch; K and V tiles staged in shared memory; f32 CUDA-core
+    arithmetic: the tensor cores would need TF32 for f32).
+
+  Both read the model-layout adapter's (:mod:`.ops`) transposed views
+  without copies and write their output straight into the ``(b, sq, h,
+  hd)`` layout.
 * :func:`flash_attention_plain` is the plain PyTorch version: the TPU
   kernel's grid written out as loops over q and kv blocks, with its block
   skips, its ``NEG_INF = -1e30`` and its ``max(l, 1e-30)``.
@@ -25,9 +34,9 @@ Both equal the reference's zero-padded result: q and kv are padded to
 multiples of ``block_q``/``block_kv`` (each capped at its length); padded
 kv rows sit beyond every real query under the causal mask, and a
 non-causal call needs ``skv`` to be a multiple of ``block_kv``.  The
-kernel uses its own 64-row tiles and takes ``block_kv`` only for the
-padded kv length; skipping a wholly masked block is exact, so the tiles
-change nothing but rounding.
+kernels use their own tiles and take ``block_kv`` only for the padded kv
+length; skipping a wholly masked block is exact, so the tiles change
+nothing but rounding.
 """
 
 from __future__ import annotations
@@ -38,12 +47,18 @@ import functools
 import torch
 import torch.nn.functional as F
 
-#: Kernel launches made by :func:`flash_attention_cuda` (one per call).
+#: Kernel launches made by :func:`flash_attention_cuda` (one per call),
+#: on either route.
 launches = 0
+#: Of those, the launches of the tensor-core kernel (the bf16 route).
+launches_tc = 0
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 80, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: dtype -> the kernel (its name in ``_build.KERNELS``) that takes it.
+ROUTES = {torch.bfloat16: "flash_attention_tc",
+          torch.float32: "flash_attention"}
+_AXES = ("batch", "head", "seq")
 
 
 def _check(q, k, v, causal: bool, window: int | None, block_kv: int):
@@ -118,15 +133,65 @@ def flash_attention_plain(q, k, v, *, scale: float, causal: bool = True,
     return out[:, :, :sq].to(q.dtype)
 
 
+def tma_layout(x: torch.Tensor, name: str) -> list[int]:
+    """How a TMA tensor map reads the ``(b, h, s, hd)`` tensor ``x`` as
+    it lies: 9 values, the three outer axes (0 batch, 1 head, 2 seq) in
+    the order of their strides, their sizes and their byte strides, the
+    head dim innermost.  Ordered by stride, the dims are monotonic both
+    for the model layout's views (seq stride ``h * hd``) and for
+    contiguous tensors.  A size-1 axis is never stepped and gets the
+    tensor's span as its stride.  Raises ``ValueError`` naming the stride
+    or base address that TMA cannot take: not a multiple of 16 bytes."""
+    esize = x.element_size()
+    if x.stride(3) != 1:
+        raise ValueError(f"{name}: the head dim must be contiguous, got "
+                         f"stride {x.stride(3)}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: base address {x.data_ptr():#x} is not a "
+                         "multiple of 16 bytes, as TMA needs")
+    span = esize * (1 + sum((n - 1) * st for n, st in zip(x.shape, x.stride())))
+    outer = []
+    for axis in range(3):
+        size, stride = x.shape[axis], x.stride(axis) * esize
+        if size == 1:
+            stride = -(-span // 16) * 16
+        elif stride % 16:
+            raise ValueError(
+                f"{name}: {_AXES[axis]} stride {x.stride(axis)} elements "
+                f"({stride} bytes) is not a multiple of 16 bytes, as TMA "
+                "needs")
+        outer.append((stride, axis, size))
+    outer.sort()
+    return ([axis for _, axis, _ in outer] + [size for _, _, size in outer]
+            + [stride for stride, _, _ in outer])
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel():
-    """The C entry point of ``csrc/flash_attention.cu``, built on first use."""
+    """The C entry point of ``csrc/flash_attention.cu`` (the f32 route),
+    built on first use."""
     from repro_torch import _build
 
     fn = _build.load("flash_attention").repro_flash_attention_fwd
-    # q, k, v, o, strides, b, h, kvh, sq, skv, skv_pad, hd, dtype, scale,
+    # q, k, v, o, strides, b, h, kvh, sq, skv, skv_pad, hd, scale, causal,
+    # window, stream
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=1)
+def _kernel_tc():
+    """The C entry point of ``csrc/flash_attention_tc.cu`` (the bf16
+    route), built on first use."""
+    from repro_torch import _build
+
+    fn = _build.load("flash_attention_tc").repro_flash_attention_tc_fwd
+    # q, k, v, o, layouts, o_strides, b, h, kvh, sq, skv_pad, hd, scale,
     # causal, window, stream
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -136,10 +201,11 @@ def _kernel():
 def flash_attention_cuda(q, k, v, *, scale: float, causal: bool = True,
                          window: int | None = None, block_q: int = 512,
                          block_kv: int = 512) -> torch.Tensor:
-    """Launch the CUDA kernel on tensors that lie on a CUDA device (same
-    arguments as :func:`flash_attention_plain`).  Returns ``(b, h, sq,
-    hd)``, a view of a ``(b, sq, h, hd)`` tensor."""
-    global launches
+    """Launch a CUDA kernel on tensors that lie on a CUDA device (same
+    arguments as :func:`flash_attention_plain`): the tensor-core kernel
+    for bf16, the CUDA-core kernel for f32.  Returns ``(b, h, sq, hd)``,
+    a view of a ``(b, sq, h, hd)`` tensor."""
+    global launches, launches_tc
     if q.device.type != "cuda":
         raise ValueError(
             f"flash_attention_cuda needs CUDA tensors, got {q.device}; the "
@@ -148,7 +214,7 @@ def flash_attention_cuda(q, k, v, *, scale: float, causal: bool = True,
     b, h, kvh, sq, skv, hd, skv_pad = _check(q, k, v, causal, window, block_kv)
     if {k.device, v.device} != {q.device}:
         raise ValueError("q, k and v lie on different devices")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the kernel takes f32 or bf16 q, k, v of one dtype; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if hd not in HEAD_DIMS:
@@ -158,21 +224,37 @@ def flash_attention_cuda(q, k, v, *, scale: float, causal: bool = True,
     out_bhsd = out.transpose(1, 2)
     if sq == 0:
         return out_bhsd
-    strides = (ctypes.c_int64 * 12)(*(
-        s for x in (q, k, v, out_bhsd) for s in x.stride()[:3]))
-    fn = _kernel()
+    tc = ROUTES[q.dtype] == "flash_attention_tc"
+    if tc:
+        layouts = (ctypes.c_int64 * 27)(*(
+            n for x, name in ((q, "q"), (k, "k"), (v, "v"))
+            for n in tma_layout(x, name)))
+        o_strides = (ctypes.c_int64 * 3)(*out_bhsd.stride()[:3])
+    else:
+        strides = (ctypes.c_int64 * 12)(*(
+            s for x in (q, k, v, out_bhsd) for s in x.stride()[:3]))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 ctypes.addressof(strides), b, h, kvh, sq, skv, skv_pad, hd,
-                 _DTYPE_CODES[q.dtype], scale, int(causal), window or 0,
-                 stream)
+        if tc:
+            err = _kernel_tc()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                ctypes.addressof(layouts), ctypes.addressof(o_strides), b, h,
+                kvh, sq, skv_pad, hd, scale, int(causal), window or 0, stream)
+        else:
+            err = _kernel()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                ctypes.addressof(strides), b, h, kvh, sq, skv, skv_pad, hd,
+                scale, int(causal), window or 0, stream)
     if err != 0:
+        what = (f"tensor map refused, CUresult {err - 10000}" if err >= 10000
+                else "no cuTensorMapEncodeTiled in the driver" if err == -2
+                else f"error {err}")
         raise RuntimeError(
-            f"flash attention kernel launch failed: error {err} "
+            f"flash attention kernel launch failed: {what} "
             f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})"
         )
     launches += 1
+    launches_tc += tc
     return out_bhsd
 
 

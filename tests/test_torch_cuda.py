@@ -7,11 +7,16 @@ that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 * K2 (flash attention) against its plain version on the shapes of
-  tests/test_kernels.py, f32 at atol=rtol=2e-5 and bf16 at atol 2e-2
-  (the plain version is held to the reference on the CPU in
-  tests/test_torch_flash_attention.py), with bitwise-equal reruns and the
-  launch counter; windows 16/48/100 with strided (transposed) inputs; a
-  causal call with more queries than keys;
+  tests/test_kernels.py, f32 (the CUDA-core kernel) at atol=rtol=2e-5
+  and bf16 (the tensor-core kernel) at atol 2e-2 and at atol 4e-3 with
+  rtol 1.6e-2 (two bf16 steps; the plain version is held to the
+  reference on the CPU in tests/test_torch_flash_attention.py), with
+  bitwise-equal reruns and the launch counters (``launches`` for both
+  routes, ``launches_tc`` for the bf16 one); windows 16/48/100 over one
+  128-row kv tile and 300 over eight, with strided (transposed) inputs,
+  f32 and bf16; non-causal calls with ragged queries; a causal call with
+  more queries than keys; a bf16 tensor whose seq stride is not a
+  multiple of 16 bytes is refused, with no copy and no other route;
 * the serving prefill with K2 against the non-flash path, f32, 1e-4;
 * K3 (the RWKV6 WKV scan) against its plain version on the shapes of
   tests/test_kernels.py and strong decays at chunk 16, f32 output and
@@ -61,6 +66,19 @@ SHAPES = {  # b, h, kvh, sq, skv, hd, block_q, block_kv
 }
 
 
+#: dtype -> the (atol, rtol) pairs K2 must meet against its plain version
+#: (as chip_smoke.py's FLASH_TOL): bf16 rounds P before P V and rounds
+#: the output once.
+TOLS = {torch.float32: ((2e-5, 2e-5),),
+        torch.bfloat16: ((2e-2, 0.0), (4e-3, 1.6e-2))}
+
+
+def _assert_within(got, want):
+    for atol, rtol in TOLS[want.dtype]:
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -80,25 +98,35 @@ def _qkv(seed, b, h, kvh, sq, skv, hd, device, dtype=torch.float32):
                                         (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_kernel_matches_plain_version_on_card(cuda, name, dtype, atol):
+    """``atol`` names the case; :data:`TOLS` holds every bound."""
     b, h, kvh, sq, skv, hd, bq, bkv = SHAPES[name]
     q, k, v = _qkv(7, b, h, kvh, sq, skv, hd, cuda, dtype)
     kw = dict(scale=hd**-0.5, block_q=bq, block_kv=bkv)
-    before = K.launches
+    before, before_tc = K.launches, K.launches_tc
     got = K.flash_attention_cuda(q, k, v, **kw)
     again = K.flash_attention_cuda(q, k, v, **kw)
     want = K.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     assert K.launches == before + 2
+    assert K.launches_tc == before_tc + (2 if dtype == torch.bfloat16 else 0)
     assert torch.equal(got, again)
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=atol if dtype == torch.float32 else 0)
+    _assert_within(got, want)
+
+
+#: window -> (seq length, block): windows inside one 128-row kv tile of
+#: the tensor-core kernel, and one over eight tiles, whose q tiles skip
+#: the whole tiles before their window.
+WINDOWS = {16: (128, 32), 48: (128, 32), 100: (128, 32), 300: (1024, 128)}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("window", [16, 48, 100])
-def test_kernel_window_and_strided_inputs_on_card(cuda, window):
-    q, k, v = _qkv(8, 2, 4, 2, 128, 128, 64, cuda)
-    kw = dict(scale=0.125, window=window, block_q=32, block_kv=32)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("window", list(WINDOWS))
+def test_kernel_window_and_strided_inputs_on_card(cuda, window, dtype, atol):
+    s, block = WINDOWS[window]
+    q, k, v = _qkv(8, 2, 4, 2, s, s, 64, cuda, dtype)
+    kw = dict(scale=0.125, window=window, block_q=block, block_kv=block)
     want = K.flash_attention_plain(q, k, v, **kw)
     got = K.flash_attention_cuda(q, k, v, **kw)
     # The same tensors as transposed views of (b, s, h, hd) storage.
@@ -106,8 +134,41 @@ def test_kernel_window_and_strided_inputs_on_card(cuda, window):
                   for x in (q, k, v))
     strided = K.flash_attention_cuda(qs, ks, vs, **kw)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    _assert_within(got, want)
     assert torch.equal(got, strided)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv", [(384, 384), (200, 384)])
+def test_kernel_non_causal_on_card(cuda, dtype, sq, skv):
+    """Every key for every query, over three 128-row kv tiles; 200 queries
+    leave the last q tile ragged."""
+    q, k, v = _qkv(13, 1, 4, 2, sq, skv, 64, cuda, dtype)
+    kw = dict(scale=0.125, causal=False, block_q=128, block_kv=128)
+    before, before_tc = K.launches, K.launches_tc
+    got = K.flash_attention_cuda(q, k, v, **kw)
+    want = K.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert K.launches == before + 1
+    assert K.launches_tc == before_tc + (dtype == torch.bfloat16)
+    _assert_within(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_bf16_stride_tma_cannot_read(cuda):
+    q, k, v = _qkv(12, 1, 2, 2, 64, 64, 32, cuda, torch.bfloat16)
+    # k as a view of (b, s, h * hd + 4) storage: a seq stride of 68
+    # elements, 136 bytes.
+    padded = torch.zeros((1, 64, 68), dtype=torch.bfloat16, device=cuda)
+    padded[..., :64] = k.transpose(1, 2).flatten(-2)
+    k_view = padded[..., :64].unflatten(-1, (2, 32)).transpose(1, 2)
+    assert torch.equal(k_view, k)
+    before, before_tc = K.launches, K.launches_tc
+    with pytest.raises(ValueError, match=r"k: seq stride 68 elements \(136 "
+                                         r"bytes\) is not a multiple of 16"):
+        K.flash_attention_cuda(q, k_view, v, scale=0.1)
+    assert (K.launches, K.launches_tc) == (before, before_tc)
 
 
 @pytest.mark.cuda

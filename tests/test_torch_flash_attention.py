@@ -12,15 +12,29 @@ kernel K2 beside its plain version) against the JAX reference
   (80 against 48, ragged: the reference's zero-padded keys count); the
   ported oracle against the reference's;
   the model-layout adapter; the dispatch and the refusals;
-* the build table lists every CUDA source of the package.
+* the bf16 route's numerics before any card: a copy of the plain loop
+  that rounds P to bf16 before P V, as the tensor-core kernel does (its
+  128 x 128 tiles, l summed from the f32 P), against the reference's
+  Pallas kernel (interpret mode) on bf16 inputs at the bf16 tolerances
+  the kernel is held to on the card: atol 2e-2, and atol 4e-3 with rtol
+  1.6e-2 (two bf16 steps);
+* the routes by dtype (bf16 to the tensor-core kernel, f32 to the
+  CUDA-core one), and the TMA layout checker: it takes the model
+  layout's views at every head dim and refuses a stride or base address
+  that is not a multiple of 16 bytes;
+* the build table lists every CUDA source of the package, and a
+  library's name follows the headers beside its source.
 
 The kernel itself is held to the plain version on a card by
 tests/test_torch_cuda.py (marker ``cuda``) and by ``chip_smoke.py``.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.flash_attention.kernel import flash_attention_bhsd as jax_bhsd
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
@@ -155,3 +169,125 @@ def test_build_table_lists_every_cuda_source():
     paths = {_build.lib_path(name) for name in _build.KERNELS}
     assert len(paths) == len(_build.KERNELS)
     assert all(p.parent == _build.BUILD_DIR for p in paths)
+
+
+def _plain_bf16_p(q, k, v, *, scale, causal=True, window=None, block_kv=512,
+                  tile=128):
+    """The plain loop as the tensor-core kernel computes it: 128 x 128
+    tiles, P rounded to bf16 before P V, l summed from the f32 P."""
+    b, h, kvh, sq, skv, hd, skv_pad = K._check(q, k, v, causal, window,
+                                               block_kv)
+    groups = h // kvh
+    kf = F.pad(k.float(), (0, 0, 0, skv_pad - skv)).repeat_interleave(groups, 1)
+    vf = F.pad(v.float(), (0, 0, 0, skv_pad - skv)).repeat_interleave(groups, 1)
+    outs = []
+    for q0 in range(0, sq, tile):
+        q_blk = q[:, :, q0:q0 + tile].float()
+        q_pos = q0 + torch.arange(q_blk.shape[2])[:, None]
+        m = torch.full((b, h, q_blk.shape[2], 1), K.NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, h, q_blk.shape[2], hd))
+        for k0 in range(0, skv_pad, tile):
+            k_blk, v_blk = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+            k_pos = k0 + torch.arange(k_blk.shape[2])[None, :]
+            mask = torch.ones((q_blk.shape[2], k_blk.shape[2]), dtype=torch.bool)
+            if causal:
+                mask &= k_pos <= q_pos
+            if window is not None:
+                mask &= (q_pos - k_pos) < window
+            if not mask.any():
+                continue  # a tile the kernel does not visit
+            s = torch.where(mask, q_blk @ k_blk.transpose(-1, -2) * scale,
+                            K.NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.where(mask, torch.exp(s - m_new), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + p.to(torch.bfloat16).float() @ v_blk
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30))
+    return torch.cat(outs, dim=2).to(q.dtype)
+
+
+@pytest.mark.parametrize("name", ["mha", "gqa", "mqa", "3-block", "ragged-q",
+                                  "hd80", "window48"])
+def test_bf16_p_rounding_within_tolerance_of_jax_kernel(name):
+    """The one new rounding of the bf16 route (P to bf16 before P V) keeps
+    it within the bf16 tolerances of the reference."""
+    import jax.numpy as jnp
+
+    window = None
+    if name == "window48":
+        name, window = "3-block", 48
+    b, h, kvh, s, hd, bq, bkv = SHAPES[name]
+    q, k, v = _qkv(10, b, h, kvh, s, hd)
+    want = jax_bhsd(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                    scale=hd**-0.5, window=window, block_q=bq, block_kv=bkv,
+                    interpret=True)
+    got = _plain_bf16_p(*_t(q, k, v, dtype=torch.bfloat16), scale=hd**-0.5,
+                        window=window, block_kv=bkv)
+    assert got.dtype == torch.bfloat16
+    for atol, rtol in ((2e-2, 0), (4e-3, 1.6e-2)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   atol=atol, rtol=rtol)
+
+
+def test_routes_by_dtype():
+    assert K.ROUTES == {torch.bfloat16: "flash_attention_tc",
+                        torch.float32: "flash_attention"}
+    assert set(K.ROUTES.values()) <= set(_build.KERNELS)
+
+
+@pytest.mark.parametrize("hd", K.HEAD_DIMS)
+@pytest.mark.parametrize("h,kvh", [(16, 16), (24, 2), (8, 1)])
+def test_tma_layout_takes_model_layout_views(hd, h, kvh):
+    """The views ops.py passes: (b, h, s, hd) transposes of (b, s, h, hd)
+    storage, dims ordered by stride (hd, h, s, b), none copied."""
+    b, s = 2, 300
+    for heads in (h, kvh):
+        x = torch.zeros((b, s, heads, hd), dtype=torch.bfloat16).transpose(1, 2)
+        axes, sizes, strides = (K.tma_layout(x, "q")[i:i + 3]
+                                for i in (0, 3, 6))
+        if heads > 1:
+            assert axes == [1, 2, 0]  # head, seq, batch
+            assert strides == [2 * hd, 2 * heads * hd, 2 * s * heads * hd]
+        else:  # a single head is never stepped: its stride goes last
+            assert axes == [2, 0, 1] and strides[:2] == [2 * hd, 2 * s * hd]
+        assert sorted(zip(axes, sizes)) == [(0, b), (1, heads), (2, s)]
+        assert all(st % 16 == 0 for st in strides)
+    contiguous = torch.zeros((b, h, s, hd), dtype=torch.bfloat16)
+    assert K.tma_layout(contiguous, "k")[:3] == [2, 1, 0]
+
+
+def test_tma_layout_refuses_misaligned_strides_and_bases():
+    # A seq stride of 68 bf16 (136 bytes): rows of two heads of 32 and 4
+    # elements of padding.
+    x = torch.zeros((1, 64, 68), dtype=torch.bfloat16)[..., :64]
+    x = x.unflatten(-1, (2, 32)).transpose(1, 2)
+    with pytest.raises(ValueError, match=r"q: seq stride 68 elements \(136 "
+                                         r"bytes\) is not a multiple of 16"):
+        K.tma_layout(x, "q")
+    y = torch.zeros(1 + 2 * 64 * 32, dtype=torch.bfloat16)[1:].view(1, 2, 64, 32)
+    with pytest.raises(ValueError, match="k: base address .* not a multiple "
+                                         "of 16 bytes"):
+        K.tma_layout(y, "k")
+
+
+def test_lib_path_follows_headers_beside_the_source(tmp_path, monkeypatch):
+    """An edited header rebuilds: the library's name hashes the headers in
+    the kernel's csrc/ directory, but not the other sources there, which
+    are libraries of their own (a copy here; the tree is not touched)."""
+    rel = "kernels/flash_attention/csrc"
+    shutil.copytree(_build.PKG / rel, tmp_path / rel)
+    monkeypatch.setattr(_build, "PKG", tmp_path)
+    tc, f32 = _build.lib_path("flash_attention_tc"), _build.lib_path(
+        "flash_attention")
+    assert tc == _build.lib_path("flash_attention_tc")
+    sibling = tmp_path / rel / "flash_attention.cu"
+    sibling.write_text(sibling.read_text() + "\n// edited\n")
+    assert _build.lib_path("flash_attention_tc") == tc
+    assert _build.lib_path("flash_attention") != f32
+    header = tmp_path / rel / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.lib_path("flash_attention_tc") != tc
