@@ -69,12 +69,16 @@ script exits non-zero:
     decode route's on 200 tokens (atol 1e-3 each);
 13. K3 timing at the rwkv6 shape beside its bound and the plain version
     (no single PyTorch call computes the scan, so no library time);
-14. the Mamba2 SSD scan kernel (K4) against its plain PyTorch version on
+14. the Mamba2 SSD scan (K4: two kernels, ``ssd_cb`` and ``ssd_scan``,
+    one launch count) against its plain PyTorch version on
     the card, f32 y and state at atol = rtol = 1e-4 and bf16 x/B/C (f32
     dt/a) at atol = rtol = 2e-2, on the shapes of tests/test_kernels.py,
     strong decays at chunk 16 and zamba2-2.7b's (4, 80, 4096, 64, 64) at
     chunk 64 (with the model's decays, and with weaker ones held at 1e-4
-    of y's scale), with bitwise reruns and the launch counter;
+    of y's scale), with bitwise reruns and the launch counter; at
+    zamba2-2.7b's shape, three faulty outputs (a late chunk's entering
+    state zeroed, one p-slice missing a chunk's decay, a chunk's diagonal
+    scores dropped) must fail the y tolerance;
 15. the zamba2 serving path, after rwkv6's weights are freed: zamba2-2.7b
     at its published widths (54 mamba2 layers, d_model 2560, ssm_state 64,
     heads of 64; one shared attention+MLP block of 32 heads of 80 and
@@ -82,8 +86,9 @@ script exits non-zero:
     2,340,750,240 parameters, random from ``--seed``) through
     ``make_prefill_step(use_flash=True, use_scan_kernel=True,
     last_token_only=True)`` on 4 x 4096 prompt tokens in bf16, cold and
-    warm (54 K4 and 9 tensor-core K2 launches per prefill, none of the
-    CUDA-core K2), profiles of a prefill and
+    warm (54 K4 launches per prefill, each of K4's two kernels 54 times
+    by name and the replaced ``ssd_fwd`` none, 9 tensor-core K2 launches
+    and none of the CUDA-core K2), profiles of a prefill and
     a decode step, then ``greedy_generate`` for 4 requests of 64 prompt
     and 32 new tokens;
 16. zamba2 cross-checks in f32 on the same weights: 1 x 1024 prefill
@@ -92,7 +97,9 @@ script exits non-zero:
     position's prefill logits against the decode route's on 200 tokens
     (atol 1e-3 each);
 17. K4 timing at the zamba2 shape beside its bound and the plain version
-    (no single PyTorch call computes the scan, so no library time), and
+    (no single PyTorch call computes the scan, so no library time), in
+    bf16 and with f32 inputs, and each of its kernels' profiled time per
+    launch, and
     K2 at zamba2's head dim 80 beside its bound, its plain version and
     ``F.scaled_dot_product_attention``, with the same fields as phase 9;
 18. the ``{"kernels": [...]}`` line (K1, K2, K3, K4), the card's name and
@@ -715,11 +722,18 @@ def plain_route(ops, name: str, plain):
         setattr(ops, name, dispatch)
 
 
-def profile_device(fn, steps: int, shares: dict[str, str]):
+def names_of(kernel) -> tuple[str, ...]:
+    """A kernel's names in a profile: one name, or a tuple of the names of
+    the kernels that together make it."""
+    return (kernel,) if isinstance(kernel, str) else tuple(kernel)
+
+
+def profile_device(fn, steps: int, shares: dict):
     """Device time by kernel over ``steps`` calls of ``fn()``, the
     device's busy share of their wall, and for each ``share: kernel`` of
     ``shares`` the share of device time of the kernels whose name holds
-    ``kernel`` and (``launches_by_kernel``) their launches per step."""
+    one of ``names_of(kernel)`` and (``launches_by_kernel``) the launches
+    per step of each such name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -735,14 +749,14 @@ def profile_device(fn, steps: int, shares: dict[str, str]):
     measured = total_us > 0
     share_of = {
         share: sum(ev.self_device_time_total for ev in kernels
-                   if kernel in ev.key) / total_us if measured
-        else "not measured"
+                   if any(one in ev.key for one in names_of(kernel)))
+        / total_us if measured else "not measured"
         for share, kernel in shares.items()}
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:6]
     return {
         "launches_by_kernel": {
-            kernel: sum(ev.count for ev in kernels if kernel in ev.key) / steps
-            for kernel in shares.values()},
+            one: sum(ev.count for ev in kernels if one in ev.key) / steps
+            for kernel in shares.values() for one in names_of(kernel)},
         "steps": steps,
         "wall_ms_per_step": wall * 1e3 / steps,
         "device_ms_per_step": total_us / 1e3 / steps if measured
@@ -774,8 +788,9 @@ def serve_main_path(phase: str, arch: str, seed: int, kernels: dict,
     warm, then ``greedy_generate`` for 4 requests of 64 prompt and 32 new
     tokens, with every launch count set to 0 just before and read just
     after.  ``kernels`` maps a tag to (a function reading the kernel's
-    launch count, the kernel's name in the profile, launches each prefill
-    must make, by the count and by name in the profile).  Then profiles of
+    launch count, the kernel's name in the profile or a tuple of the names
+    of the kernels one launch runs, launches each prefill must make, by
+    the count and by each name in the profile).  Then profiles of
     a prefill and a decode step, with each kernel's share of device time
     as ``<tag>_share_of_device``.  Emits
     ``phase`` and returns (cfg, params, {tag: launches}, {tag: launches
@@ -840,10 +855,11 @@ def serve_main_path(phase: str, arch: str, seed: int, kernels: dict,
                              "prefill, so the launches by kernel name "
                              "cannot be checked")
     for tag, (_, name, expected) in kernels.items():
-        seen = prof_prefill["launches_by_kernel"][name]
-        if seen != expected:
-            raise AssertionError(f"the profiled prefill launched {name} "
-                                 f"{seen} times, expected {expected}")
+        for one in names_of(name):
+            seen = prof_prefill["launches_by_kernel"][one]
+            if seen != expected:
+                raise AssertionError(f"the profiled prefill launched {one} "
+                                     f"{seen} times, expected {expected}")
     # Decode steps of the greedy loop's shape: 4 rows at position 63 of a
     # 96-slot cache (the ssm family's state does not grow).
     step = make_decode_step(cfg)
@@ -1286,6 +1302,52 @@ def ssd_bound(b, h, t, p, n, chunk, dtype) -> tuple[float, str, int, int]:
     return t_ops, "operations", nbytes, flops
 
 
+def wrong_ssd(sk, args, chunk: int) -> dict:
+    """Outputs (y, state) of three faulty K4s on ``args``, built from the
+    plain version: the faults a chunk-parallel K4 makes possible.
+
+    * The state entering one late chunk of one (batch, head) taken as 0.
+    * One 16-column p-slice of one head misses one chunk's exp(total)
+      decay (S <- S + s_new there), and the miss carries into every later
+      chunk.
+    * The diagonal term (j = i) of one chunk's scores dropped, for one
+      (batch, head)."""
+    x, dt, a, B, C, s0 = args
+    t = x.shape[2]
+    nc = -(-t // chunk)
+    late, mid = nc - 4, nc // 2
+
+    def run(lo, hi, s):  # the plain version on chunks [lo, hi) from s
+        rows = slice(lo * chunk, min(hi * chunk, t))
+        return sk.ssd_plain(x[:, :, rows], dt[:, :, rows], a[:, :, rows],
+                            B[:, rows], C[:, rows], s, chunk=chunk)
+
+    wrong = {}
+    y1, s1 = run(0, late, s0)
+    s1[1, 5] = 0.0
+    y2, s2 = run(late, nc, s1)
+    wrong[f"state entering chunk {late} of (batch 1, head 5) taken as 0"] = (
+        torch.cat([y1, y2], dim=2), s2)
+
+    y1, s1 = run(0, mid, s0)
+    y2, s2 = run(mid, mid + 1, s1)
+    _, s_new = run(mid, mid + 1, torch.zeros_like(s0))
+    cols = slice(16, 32)
+    s2[2, 7, cols] = s1[2, 7, cols] + s_new[2, 7, cols]
+    y3, s3 = run(mid + 1, nc, s2)
+    wrong[f"columns 16-31 of (batch 2, head 7) miss chunk {mid}'s decay"] = (
+        torch.cat([y1, y2, y3], dim=2), s3)
+
+    y, s = sk.ssd_plain(*args, chunk=chunk)
+    rows = slice(mid * chunk, (mid + 1) * chunk)
+    diag = (C[3, rows].float() * B[3, rows].float()).sum(-1) * dt[3, 11, rows]
+    y[3, 11, rows] = (y[3, 11, rows].float()
+                      - diag[:, None] * x[3, 11, rows].float()).to(y.dtype)
+    wrong[f"diagonal of chunk {mid}'s scores dropped, (batch 3, head 11)"] = (
+        y, s)
+    return wrong
+
+
 def phase_ssd_kernel_vs_plain(seed: int):
     from repro_torch.kernels.ssd import kernel as sk
 
@@ -1320,6 +1382,18 @@ def phase_ssd_kernel_vs_plain(seed: int):
                 raise AssertionError(
                     f"{name} {dtype}: kernel state != plain version (max abs "
                     f"err {err_s}, atol = rtol = 1e-4)")
+            wrong = {}
+            if name == "zamba2-2.7b":
+                for what, (bad_y, bad_s) in wrong_ssd(sk, args, chunk).items():
+                    ratio = tol_ratio(bad_y, want_y, [(y_atol, rtol)])
+                    wrong[what] = {
+                        "y_tol_ratio": ratio,
+                        "state_tol_ratio": tol_ratio(bad_s, want_s,
+                                                     [(1e-4, 1e-4)])}
+                    if not ratio > 1.0:
+                        raise AssertionError(
+                            f"{name} {dtype}: the y tolerance lets a faulty "
+                            f"kernel through ({what}: {ratio:.3g} of it)")
             emit("ssd_kernel_vs_plain", case=name,
                  dtype=str(dtype).replace("torch.", ""),
                  shape=[b, h, t, p, n], chunk=chunk, decay_sharpening=sharpen,
@@ -1327,7 +1401,8 @@ def phase_ssd_kernel_vs_plain(seed: int):
                  y_abs_max=y_max, state_max_abs_err=err_s, atol=y_atol,
                  rtol=rtol, rerun_bitwise_equal=True,
                  kernel_vs_f64_max_abs_err=(got_y.double() - y64).abs().max().item(),
-                 plain_vs_f64_max_abs_err=(want_y.double() - y64).abs().max().item())
+                 plain_vs_f64_max_abs_err=(want_y.double() - y64).abs().max().item(),
+                 **({"faulty_kernels_vs_plain": wrong} if wrong else {}))
 
 
 def phase_zamba_serve_main_path(seed: int):
@@ -1336,7 +1411,10 @@ def phase_zamba_serve_main_path(seed: int):
 
     cfg, params, launches, per_prefill = serve_main_path(
         "zamba_serve_main_path", "zamba2_2b7", seed,
-        {"k4": (lambda: sk.launches, "ssd_fwd", 54), **k2_counts(fk, 9)},
+        {"k4": (lambda: sk.launches, sk.KERNEL_NAMES, 54),
+         # The single kernel K4 was before: launched by no prefill.
+         "k4_single_kernel": (lambda: 0, "ssd_fwd", 0),
+         **k2_counts(fk, 9)},
         use_flash=True, use_scan_kernel=True)
     n_params = sum(p.numel() for p in params.parameters())
     print(f"zamba2-2.7b parameters: {n_params}", flush=True)
@@ -1429,6 +1507,15 @@ def phase_ssd_timing(seed: int, serve_launches: int, per_prefill: int):
     ms_f32 = cuda_ms(lambda: sk.ssd_cuda(*args32, chunk=chunk), 10)
     plain_ms = cuda_ms(lambda: sk.ssd_plain(*args, chunk=chunk), 3)
     bound_ms, bound_by, nbytes, flops = ssd_bound(b, h, t, p, n, chunk, dtype)
+    # Per launch: device time over launches seen, which holds when the
+    # profiler misses the first calls of a short window.
+    prof = profile_device(lambda: sk.ssd_cuda(*args, chunk=chunk), steps=20,
+                          shares={name: name for name in sk.KERNEL_NAMES})
+    seen = prof["launches_by_kernel"]
+    by_kernel = {
+        name: prof["device_ms_per_step"] * prof[name] / seen[name]
+        if seen[name] and prof["device_ms_per_step"] != "not measured"
+        else "not measured" for name in sk.KERNEL_NAMES}
     entry = {
         "name": "ssd",
         "route": "cuda",
@@ -1449,6 +1536,8 @@ def phase_ssd_timing(seed: int, serve_launches: int, per_prefill: int):
         "flops_per_call": flops,
         "achieved_tflops": flops / (ms * 1e-3) / 1e12,
         "ms_float32_inputs": ms_f32,
+        "kernels": list(sk.KERNEL_NAMES),
+        "profiled_ms_per_launch": by_kernel,
     }
     emit("ssd_timing", **entry)
     return entry

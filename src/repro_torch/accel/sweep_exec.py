@@ -10,7 +10,7 @@ stack cells into one ``(B, J)`` batch, and run the whole matrix through
 cell represents.  Unlike the reference, :func:`run_sweep_accel` has no
 discrete-event simulator to fall back on yet: an ineligible cell raises,
 naming the cell and the reason.  The per-cell fallback returns with the
-simulator slice of the port (ROADMAP.md Queue 1 item 1).
+simulator slice of the port (ROADMAP.md Queue 1 item 3).
 """
 
 from __future__ import annotations

@@ -14,13 +14,15 @@ carried across chunks.  Per chunk of length c, in f32:
     y       = scores @ x  +  exp(cum) * (C @ S^T)
     S       = exp(total) * S + (x * dt * exp(total - cum))^T @ B
 
-* :func:`ssd_cuda` launches ``csrc/ssd.cu`` (one thread block per
-  (batch, head) walking the chunks in order, the state in shared memory,
-  the products as f32 FMAs) on x, B, C in f32 or bf16 with dt, a and s0
-  in f32, p and n in {8, 16, 32, 64} and chunks of 16, 32 or 64.  It
-  reads its inputs through their strides, so the model-layout adapter
-  (:mod:`.ops`) passes transposed views without copies, and it writes
-  ``y`` straight into the ``(b, t, h, p)`` layout.
+* :func:`ssd_cuda` launches ``csrc/ssd.cu`` on x, B, C in f32 or bf16
+  with dt, a and s0 in f32, p and n in {8, 16, 32, 64} and chunks of 16,
+  32 or 64: ``ssd_cb`` forms C B^T once per (batch, chunk), then
+  ``ssd_scan`` runs one block per (chunk, head, batch), all chunks at
+  once: each block adds its chunk's term to the state the block of the
+  chunk before published, publishes the sum for the next, and computes
+  its chunk's y.  The wrapper allocates the scratch.  It reads its inputs through their strides, so the model-layout
+  adapter (:mod:`.ops`) passes transposed views without copies, and it
+  writes ``y`` straight into the ``(b, t, h, p)`` layout.
 * :func:`ssd_plain` is the plain PyTorch version: the TPU kernel's
   per-chunk algorithm (kernel.py:39-70) written out, its elementwise
   steps and intra-chunk products batched over chunks and a loop over
@@ -44,9 +46,12 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import chunk_tile as _tile
 
-#: Kernel launches made by :func:`ssd_cuda` (one per call).
+#: Calls of :func:`ssd_cuda` that launched the kernels (one per call: each
+#: launches the two kernels of :data:`KERNEL_NAMES` once).
 launches = 0
 
+#: The kernels one call launches, in order, by their names in a profile.
+KERNEL_NAMES = ("ssd_cb", "ssd_scan")
 HEAD_DIMS = (8, 16, 32, 64)    # p
 STATE_DIMS = (8, 16, 32, 64)   # n
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -121,15 +126,26 @@ def ssd_plain(x, dt, a, B, C, s0, *, chunk: int = 64):
     return y.to(x.dtype), S
 
 
+def _aligned(v):
+    """``v`` if the kernel's 16-byte loads can read it in place (last dim
+    contiguous; base and row strides multiples of 16 bytes), else a
+    contiguous copy."""
+    size = v.element_size()
+    if v.stride(-1) == 1 and v.data_ptr() % 16 == 0 and all(
+            s * size % 16 == 0 for s in v.stride()[:-1]):
+        return v
+    return v.clone(memory_format=torch.contiguous_format)
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel():
     """The C entry point of ``csrc/ssd.cu``, built on first use."""
     from repro_torch import _build
 
-    fn = _build.load("ssd").repro_ssd_fwd
-    # x, dt, a, B, C, s0, y, s_out, strides, b, h, t, p, n, chunk, dtype,
-    # stream
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+    fn = _build.load("ssd").repro_ssd
+    # x, dt, a, B, C, s0, y, s_out, cb, st, sync, strides, b, h, t, p, n,
+    # chunk, dtype, stream
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -154,8 +170,13 @@ def ssd_cuda(x, dt, a, B, C, s0, *, chunk: int = 64):
         raise ValueError(f"head dim p={p}, state dim n={n}: the kernel takes "
                          f"p in {HEAD_DIMS} and n in {STATE_DIMS}")
     tile = _tile(c, t)
-    x, B, C = (v if v.stride(-1) == 1 else v.contiguous() for v in (x, B, C))
+    x, B, C = (_aligned(v) for v in (x, B, C))
     s0 = s0.contiguous()
+    nc = -(-t // tile)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    cb = torch.empty((b, nc, tile, tile), **f32)   # C B^T per chunk
+    st = torch.empty((b, h, 2, n, p), **f32)       # ring of entering states
+    sync = torch.empty(1 + b * h * nc, dtype=torch.int32, device=x.device)
     out = torch.empty((b, t, h, p), dtype=x.dtype, device=x.device)
     y = out.transpose(1, 2)
     s_out = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
@@ -167,10 +188,11 @@ def ssd_cuda(x, dt, a, B, C, s0, *, chunk: int = 64):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), B.data_ptr(),
                  C.data_ptr(), s0.data_ptr(), out.data_ptr(),
-                 s_out.data_ptr(), ctypes.addressof(strides), b, h, t, p, n,
+                 s_out.data_ptr(), cb.data_ptr(), st.data_ptr(),
+                 sync.data_ptr(), ctypes.addressof(strides), b, h, t, p, n,
                  tile, _DTYPE_CODES[x.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"ssd kernel launch failed: error {err} "
+        raise RuntimeError(f"ssd kernels' launch failed: error {err} "
                            f"(x {tuple(x.shape)}, n {n}, {x.dtype}, "
                            f"chunk {tile})")
     launches += 1

@@ -17,8 +17,8 @@ from repro_torch.workload import WorkloadSpec, fb_dataset, fb_scaled_dataset
 #: Workload kinds this slice does not materialize yet, and the ROADMAP
 #: item (Queue 1) that brings each.
 _LATER_KINDS = {
-    "ml": "ROADMAP.md Queue 1 item 4 (ML-job substrate)",
-    "trace": "ROADMAP.md Queue 1 item 1 (discrete-event path: trace replay)",
+    "ml": "ROADMAP.md Queue 1 item 6 (ML-job substrate)",
+    "trace": "ROADMAP.md Queue 1 item 3 (discrete-event path: trace replay)",
 }
 
 

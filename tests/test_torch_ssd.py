@@ -12,6 +12,8 @@ at 0.1 N.
   another order than XLA's); both against the oracle at the reference's
   own tolerances (atol = rtol = 1e-3 for y, atol 1e-4 and rtol 1e-3 for
   the state).
+* Slices of p through either gives the slices of the whole call: the
+  columns of p are independent, the property the kernel's split rests on.
 * Strong decays (a down to ~1e-27 within a chunk) at chunk 16, against
   the Pallas kernel and the oracle at the same tolerances; decays of 0
   stay finite and near the oracle.
@@ -87,6 +89,31 @@ def test_plain_matches_jax_kernel_and_oracle(name):
                                atol=2e-5, rtol=2e-5)
     _close_to_oracle(got_y, got_s, args)
     _close_to_oracle(want_y, want_s, args)
+
+
+def test_p_slices_are_independent():
+    """The property K4's split rests on: column pp of y and row pp of the
+    state depend only on column pp of x and row pp of s0.  Each 16-column
+    slice of x and s0, through the reference's Pallas kernel and through
+    the plain version, gives that slice of the whole call (ragged t = 70
+    over three chunks)."""
+    b, h, t, p, n, chunk = 1, 2, 70, 32, 8, 32
+    x, dt, a, B, C, s0 = _inputs(10, b, h, t, p, n)
+    routes = {
+        "pallas": lambda x, s0: tuple(np.asarray(v) for v in jax_bhtp(
+            x, dt, a, B, C, s0, chunk=chunk, interpret=True)),
+        "plain": lambda x, s0: tuple(v.numpy() for v in K.ssd_plain(
+            *_t(x, dt, a, B, C, s0), chunk=chunk)),
+    }
+    whole = {name: route(x, s0) for name, route in routes.items()}
+    for name, route in routes.items():
+        parts = [route(x[..., c:c + 16], s0[:, :, c:c + 16])
+                 for c in range(0, p, 16)]
+        y = np.concatenate([part[0] for part in parts], axis=3)
+        s = np.concatenate([part[1] for part in parts], axis=2)
+        for want_y, want_s in whole.values():
+            np.testing.assert_allclose(y, want_y, atol=2e-5, rtol=2e-5)
+            np.testing.assert_allclose(s, want_s, atol=2e-5, rtol=2e-5)
 
 
 def test_strong_decays_match_jax_kernel_and_oracle():
@@ -220,6 +247,21 @@ def test_softplus_and_conv_match_jax():
     got_y, got_s = M.causal_conv(*_t(x, w, bias, st))
     np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), atol=1e-6)
     np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+
+
+def test_kernel_reads_aligned_inputs_in_place_and_copies_the_rest():
+    """The kernel's 16-byte loads need 16-byte aligned rows: the wrapper
+    passes such a tensor as it is and gives it a contiguous copy
+    otherwise."""
+    x = torch.zeros(2, 3, 40, 16, dtype=torch.bfloat16)
+    view = x.transpose(1, 2).transpose(1, 2)        # the same strides
+    assert K._aligned(view) is view
+    shifted = x.reshape(-1)[1:1 + 2 * 3 * 40 * 8].view(2, 3, 40, 8)
+    rows24 = torch.zeros(2, 3, 40, 12, dtype=torch.bfloat16)[..., :8]
+    for v in (shifted, rows24):
+        got = K._aligned(v)
+        assert got is not v and got.is_contiguous()
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, v)
 
 
 def test_dispatch_and_refusals():
