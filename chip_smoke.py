@@ -51,24 +51,36 @@ script exits non-zero:
    ``F.scaled_dot_product_attention`` (timed only, never on the path): its
    achieved TFLOP/s, share of the bound and ratio to SDPA, and the f32
    route's time on the same inputs in f32;
-10. the RWKV6 WKV scan kernel (K3) against its plain PyTorch version on
+10. the RWKV6 WKV scan kernel (K3: ``rwkv6_scan``, one block per chunk,
+    head and batch row, the entering state handed from block to block
+    through a two-slot ring per head) against its plain PyTorch version on
     the card, f32 output and state at atol = rtol = 1e-4 and bf16 r/k/v
     (f32 w) at atol = rtol = 2e-2, on the shapes of tests/test_kernels.py,
-    strong decays at chunk 16 and rwkv6-1.6b's (4, 32, 4096, 64) at
-    chunk 64, with bitwise reruns and the launch counter;
+    strong decays at chunk 16, a ragged 16-chunk scan over 16 heads
+    (2, 8, 1000, 64) and rwkv6-1.6b's (4, 32, 4096, 64) at chunk 64 with
+    test_kernels.py's decays (sharpness 2) and with the model's (sharpness
+    6, w ~ 0.9975), with bitwise reruns and the launch counter; at
+    rwkv6-1.6b's shape, at both decays, three faulty outputs (a late
+    chunk's entering state zeroed, one channel of the state missing a
+    chunk's decay, a chunk's bonus diagonal dropped) must fail the output
+    tolerance;
 11. the rwkv6 serving path, after olmo-1b's weights are freed: rwkv6-1.6b
     at its published widths (24 layers, d_model 2048, 32 heads of 64,
     d_ff 7168, vocab 65536, untied head; 1,583,941,632 parameters, random
     from ``--seed``) through ``make_prefill_step(use_scan_kernel=True,
     last_token_only=True)`` on 4 x 4096 prompt tokens in bf16, cold and
-    warm (24 K3 launches per prefill), a profile of one prefill, then
-    ``greedy_generate`` for 4 requests of 64 prompt and 32 new tokens;
+    warm (24 K3 launches per prefill, by counter and by ``rwkv6_scan``'s
+    name in the profile, and the replaced ``rwkv6_fwd`` none), a profile
+    of one prefill, then ``greedy_generate`` for 4 requests of 64 prompt
+    and 32 new tokens;
 12. rwkv6 cross-checks in f32 on the same weights: 1 x 1024 prefill
     logits with K3 against the plain version and the ``rwkv_scan_chunked``
     route, and the last prompt position's prefill logits against the
     decode route's on 200 tokens (atol 1e-3 each);
-13. K3 timing at the rwkv6 shape beside its bound and the plain version
-    (no single PyTorch call computes the scan, so no library time);
+13. K3 timing at the rwkv6 shape beside its bound (and its share of it)
+    and the plain version (no single PyTorch call computes the scan, so no
+    library time), in bf16 and with f32 inputs, each against the bound of
+    its own input bytes;
 14. the Mamba2 SSD scan (K4: two kernels, ``ssd_cb`` and ``ssd_scan``,
     one launch count) against its plain PyTorch version on
     the card, f32 y and state at atol = rtol = 1e-4 and bf16 x/B/C (f32
@@ -1030,15 +1042,21 @@ def phase_flash_timing(seed: int, serve_launches: int, per_prefill: int):
 # The RWKV6 WKV scan (K3) and the rwkv6 serving path
 # ---------------------------------------------------------------------------
 #: (name, b, h, t, d, chunk, decay sharpness): the four shapes of
-#: tests/test_kernels.py, strong decays at chunk 16 (w down to ~1e-16),
-#: and rwkv6-1.6b's prefill call.
+#: tests/test_kernels.py, strong decays at chunk 16 (w down to ~1e-16), a
+#: ragged scan of 16 chunks over 16 (batch, head) rows, whose blocks wait on
+#: one another's states, and rwkv6-1.6b's prefill call with
+#: test_kernels.py's decays and with the model's (``wd_bias = -6``: w ~
+#: 0.9975, a state that remembers hundreds of tokens, so a fault in it
+#: carries over many chunks).
 RWKV_CASES = (
     ("tiny", 1, 1, 32, 8, 16, 2.0),
     ("3-chunk", 2, 3, 100, 16, 32, 2.0),
     ("one-chunk", 1, 2, 64, 32, 64, 2.0),
     ("ragged-t65", 2, 2, 65, 16, 32, 2.0),
     ("strong-decay", 1, 2, 128, 16, 16, 0.0),
+    ("ring-t1000", 2, 8, 1000, 64, 64, 2.0),
     ("rwkv6-1.6b", 4, 32, 4096, 64, 64, 2.0),
+    ("rwkv6-1.6b-model-decays", 4, 32, 4096, 64, 64, 6.0),
 )
 #: dtype of r/k/v -> (atol, rtol) of K3's output against its plain
 #: version: f32 sums in another order; bf16 adds one rounding of the
@@ -1084,6 +1102,52 @@ def rwkv_bound(b, h, t, d, chunk, dtype) -> tuple[float, str, int, int]:
     return t_ops, "operations", nbytes, flops
 
 
+def wrong_rwkv6(rk, args, chunk: int) -> dict:
+    """Outputs (o, state) of three faulty K3s on ``args`` (at least 4
+    batch rows, 12 heads and 5 chunks), built from the plain version: the
+    faults a chunk-parallel K3 makes possible.
+
+    * The state entering one late chunk of one (batch, head) taken as 0.
+    * One channel (row of the state) of one head misses one chunk's
+      exp(total) decay (S <- S + dS there), and the miss carries into every
+      later chunk.
+    * One chunk's bonus diagonal (sum_d r u k) v dropped, for one (batch,
+      head)."""
+    r, k, v, w, u, s0 = args
+    t = r.shape[2]
+    nc = -(-t // chunk)
+    late, mid = nc - 4, nc // 2
+
+    def run(lo, hi, s):  # the plain version on chunks [lo, hi) from s
+        rows = slice(lo * chunk, min(hi * chunk, t))
+        return rk.rwkv6_plain(r[:, :, rows], k[:, :, rows], v[:, :, rows],
+                              w[:, :, rows], u, s, chunk=chunk)
+
+    wrong = {}
+    o1, s1 = run(0, late, s0)
+    s1[1, 5] = 0.0
+    o2, s2 = run(late, nc, s1)
+    wrong[f"state entering chunk {late} of (batch 1, head 5) taken as 0"] = (
+        torch.cat([o1, o2], dim=2), s2)
+
+    o1, s1 = run(0, mid, s0)
+    o2, s2 = run(mid, mid + 1, s1)
+    _, ds = run(mid, mid + 1, torch.zeros_like(s0))
+    s2[2, 7, 3] = s1[2, 7, 3] + ds[2, 7, 3]
+    o3, s3 = run(mid + 1, nc, s2)
+    wrong[f"channel 3 of (batch 2, head 7) misses chunk {mid}'s decay"] = (
+        torch.cat([o1, o2, o3], dim=2), s3)
+
+    o, s = rk.rwkv6_plain(*args, chunk=chunk)
+    rows = slice(mid * chunk, (mid + 1) * chunk)
+    diag = (r[3, 11, rows].float() * u[11] * k[3, 11, rows].float()).sum(-1)
+    o[3, 11, rows] = (o[3, 11, rows].float()
+                      - diag[:, None] * v[3, 11, rows].float()).to(o.dtype)
+    wrong[f"bonus diagonal of chunk {mid} dropped, (batch 3, head 11)"] = (
+        o, s)
+    return wrong
+
+
 def phase_rwkv6_kernel_vs_plain(seed: int):
     from repro_torch.kernels.rwkv6 import kernel as rk
 
@@ -1115,12 +1179,29 @@ def phase_rwkv6_kernel_vs_plain(seed: int):
                 raise AssertionError(
                     f"{name} {dtype}: kernel state != plain version (max abs "
                     f"err {err_s}, atol = rtol = 1e-4)")
+            wrong = {}
+            if name.startswith("rwkv6-1.6b"):
+                for what, (bad_o, bad_s) in wrong_rwkv6(rk, args,
+                                                        chunk).items():
+                    ratio = tol_ratio(bad_o, want_o, [(atol, rtol)])
+                    wrong[what] = {
+                        "tol_ratio": ratio,
+                        "state_tol_ratio": tol_ratio(bad_s, want_s,
+                                                     [(1e-4, 1e-4)])}
+                    if not ratio > 1.0:
+                        raise AssertionError(
+                            f"{name} {dtype}: the output tolerance lets a "
+                            f"faulty kernel through ({what}: {ratio:.3g} of "
+                            "it)")
             emit("rwkv6_kernel_vs_plain", case=name,
                  dtype=str(dtype).replace("torch.", ""), shape=[b, h, t, d],
                  chunk=chunk, decay_sharpness=sharp,
-                 min_w=args[3].min().item(), max_abs_err=err,
+                 min_w=args[3].min().item(), max_w=args[3].max().item(),
+                 max_abs_err=err, o_abs_max=want_o.float().abs().max().item(),
+                 tol_ratio=tol_ratio(got_o, want_o, [(atol, rtol)]),
                  state_max_abs_err=err_s, atol=atol, rtol=rtol,
-                 rerun_bitwise_equal=True)
+                 rerun_bitwise_equal=True,
+                 **({"faulty_kernels_vs_plain": wrong} if wrong else {}))
 
 
 def phase_rwkv_serve_main_path(seed: int):
@@ -1128,7 +1209,10 @@ def phase_rwkv_serve_main_path(seed: int):
 
     cfg, params, launches, per_prefill = serve_main_path(
         "rwkv_serve_main_path", "rwkv6_1b6", seed,
-        {"k3": (lambda: rk.launches, "rwkv6_fwd", 24)}, use_scan_kernel=True)
+        {"k3": (lambda: rk.launches, rk.KERNEL_NAME, 24),
+         # The kernel K3 was before: launched by no prefill.
+         "k3_old_kernel": (lambda: 0, "rwkv6_fwd", 0)},
+        use_scan_kernel=True)
     n_params = sum(p.numel() for p in params.parameters())
     print(f"rwkv6-1.6b parameters: {n_params}", flush=True)
     if n_params != RWKV_PARAMS:
@@ -1207,6 +1291,7 @@ def phase_rwkv6_timing(seed: int, serve_launches: int, per_prefill: int):
     ms_f32 = cuda_ms(lambda: rk.rwkv6_cuda(*args32, chunk=chunk), 10)
     plain_ms = cuda_ms(lambda: rk.rwkv6_plain(*args, chunk=chunk), 3)
     bound_ms, bound_by, nbytes, flops = rwkv_bound(b, h, t, d, chunk, dtype)
+    bound32_ms, bound32_by, _, _ = rwkv_bound(b, h, t, d, chunk, torch.float32)
     entry = {
         "name": "rwkv6",
         "route": "cuda",
@@ -1226,7 +1311,12 @@ def phase_rwkv6_timing(seed: int, serve_launches: int, per_prefill: int):
         "bytes_per_call": nbytes,
         "flops_per_call": flops,
         "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+        "share_of_bound": bound_ms / ms,
         "ms_float32_inputs": ms_f32,
+        "bound_ms_float32_inputs": bound32_ms,
+        "bound_by_float32_inputs": bound32_by,
+        "share_of_bound_float32_inputs": bound32_ms / ms_f32,
+        "kernel": rk.KERNEL_NAME,
     }
     emit("rwkv6_timing", **entry)
     return entry

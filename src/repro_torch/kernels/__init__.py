@@ -1,6 +1,8 @@
 """Kernels of the port: each a hand-written CUDA kernel for Hopper beside
 its plain PyTorch version, mirroring ``repro.kernels``."""
 
+import torch
+
 #: Chunk lengths the chunked-scan kernels (K3, K4) are built for.
 CHUNKS = (16, 32, 64)
 
@@ -15,3 +17,14 @@ def chunk_tile(c: int, t: int) -> int:
     if c == t and t < CHUNKS[-1]:
         return min(v for v in CHUNKS if v >= t)
     raise ValueError(f"chunk length {c} not in {CHUNKS}")
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if a chunked-scan kernel's 16-byte loads can read it in place
+    (last dim contiguous; base and row strides multiples of 16 bytes),
+    else a contiguous copy."""
+    size = x.element_size()
+    if x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
+            s * size % 16 == 0 for s in x.stride()[:-1]):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)

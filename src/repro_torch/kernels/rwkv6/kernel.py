@@ -15,13 +15,17 @@ chunks.  Per chunk of length c, in f32:
              + (sum r u k) v                               (bonus diagonal)
     S        = exp(total) S + (k exp(total - cum))^T @ v
 
-* :func:`rwkv6_cuda` launches ``csrc/rwkv6.cu`` (one thread block per
-  (batch, head) walking the chunks in order, the state in shared memory,
-  the four products as f32 FMAs) on r/k/v in f32 or bf16 with w, u and
-  s0 in f32, dk = dv in {8, 16, 32, 64} and chunks of 16, 32 or 64.  It
-  reads its inputs through their strides, so the model-layout adapter
-  (:mod:`.ops`) passes transposed views without copies, and it writes the
-  output straight into the ``(b, t, h, dv)`` layout.
+* :func:`rwkv6_cuda` launches ``csrc/rwkv6.cu`` (``rwkv6_scan``: one
+  thread block per (chunk, head, batch), all chunks at once; each block
+  adds its chunk's term to the state the block of the chunk before
+  published in a two-slot ring per (batch, head), publishes the sum for
+  the next, and computes its chunk's output; the four products as f32
+  FMAs) on r/k/v in f32 or bf16 with w, u and s0 in f32, dk = dv in
+  {8, 16, 32, 64} and chunks of 16, 32 or 64.  The wrapper allocates the
+  ring and the tickets.  It reads its inputs through their strides, so
+  the model-layout adapter (:mod:`.ops`) passes transposed views without
+  copies, and it writes the output straight into the ``(b, t, h, dv)``
+  layout.
 * :func:`rwkv6_plain` is the plain PyTorch version: the TPU kernel's
   per-chunk algorithm (kernel.py:42-78) written out, its elementwise
   steps and intra-chunk products batched over chunks and a loop over
@@ -49,10 +53,14 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import aligned as _aligned
 from repro_torch.kernels import chunk_tile as _tile
 
 #: Kernel launches made by :func:`rwkv6_cuda` (one per call).
 launches = 0
+
+#: The kernel's name in a profile.
+KERNEL_NAME = "rwkv6_scan"
 
 HEAD_DIMS = (8, 16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -124,9 +132,10 @@ def _kernel():
     """The C entry point of ``csrc/rwkv6.cu``, built on first use."""
     from repro_torch import _build
 
-    fn = _build.load("rwkv6").repro_rwkv6_fwd
-    # r, k, v, w, u, s0, o, s_out, strides, b, h, t, d, chunk, dtype, stream
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    fn = _build.load("rwkv6").repro_rwkv6
+    # r, k, v, w, u, s0, o, s_out, st, sync, strides, b, h, t, d, chunk,
+    # dtype, stream
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -151,9 +160,12 @@ def rwkv6_cuda(r, k, v, w, u, s0, *, chunk: int = 64):
         raise ValueError(f"head dims dk={dk}, dv={dv}: the kernel takes "
                          f"dk = dv in {HEAD_DIMS}")
     tile = _tile(c, t)
-    r, k, v, w = (x if x.stride(-1) == 1 else x.contiguous()
-                  for x in (r, k, v, w))
-    u, s0 = u.contiguous(), s0.contiguous()
+    r, k, v, w = (_aligned(x) for x in (r, k, v, w))
+    u, s0 = u.contiguous(), _aligned(s0.contiguous())
+    nc = -(-t // tile)
+    st = torch.empty((b, h, 2, dk, dv), dtype=torch.float32,
+                     device=r.device)   # ring of entering states
+    sync = torch.empty(1 + b * h * nc, dtype=torch.int32, device=r.device)
     out = torch.empty((b, t, h, dv), dtype=r.dtype, device=r.device)
     o = out.transpose(1, 2)
     s_out = torch.empty((b, h, dk, dv), dtype=torch.float32, device=r.device)
@@ -164,8 +176,8 @@ def rwkv6_cuda(r, k, v, w, u, s0, *, chunk: int = 64):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), s0.data_ptr(), out.data_ptr(), s_out.data_ptr(),
-                 ctypes.addressof(strides), b, h, t, dk, tile,
-                 _DTYPE_CODES[r.dtype], stream)
+                 st.data_ptr(), sync.data_ptr(), ctypes.addressof(strides),
+                 b, h, t, dk, tile, _DTYPE_CODES[r.dtype], stream)
     if err != 0:
         raise RuntimeError(f"rwkv6 kernel launch failed: error {err} "
                            f"(r {tuple(r.shape)}, {r.dtype}, chunk {tile})")

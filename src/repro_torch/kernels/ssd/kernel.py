@@ -44,6 +44,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import aligned as _aligned
 from repro_torch.kernels import chunk_tile as _tile
 
 #: Calls of :func:`ssd_cuda` that launched the kernels (one per call: each
@@ -124,17 +125,6 @@ def ssd_plain(x, dt, a, B, C, s0, *, chunk: int = 64):
         S = decay[:, :, i] * S + s_new[:, :, i]
     y = y.reshape(b, h, nc * c, p)[:, :, :t]
     return y.to(x.dtype), S
-
-
-def _aligned(v):
-    """``v`` if the kernel's 16-byte loads can read it in place (last dim
-    contiguous; base and row strides multiples of 16 bytes), else a
-    contiguous copy."""
-    size = v.element_size()
-    if v.stride(-1) == 1 and v.data_ptr() % 16 == 0 and all(
-            s * size % 16 == 0 for s in v.stride()[:-1]):
-        return v
-    return v.clone(memory_format=torch.contiguous_format)
 
 
 @functools.lru_cache(maxsize=1)

@@ -19,7 +19,10 @@ that has only the port's dependencies:
   multiple of 16 bytes is refused, with no copy and no other route;
 * the serving prefill with K2 against the non-flash path, f32, 1e-4;
 * K3 (the RWKV6 WKV scan) against its plain version on the shapes of
-  tests/test_kernels.py and strong decays at chunk 16, f32 output and
+  tests/test_kernels.py, strong decays at chunk 16, a ragged 16-chunk scan
+  over 16 (batch, head) rows (each chunk's state handed from block to
+  block 15 times) and rwkv6-1.6b's (4, 32, 4096, 64) with the model's
+  decays (sharpness 6, w ~ 0.9975), f32 output and
   state at atol = rtol = 1e-4 and bf16 r/k/v at atol = rtol = 2e-2 (one
   bf16 rounding of the output is relative; the plain
   version is held to the reference on the CPU in
@@ -207,6 +210,8 @@ RWKV_SHAPES = {  # b, h, t, d, chunk, decay sharpness
     "ragged-t65": (2, 2, 65, 16, 32, 2.0),
     "strong-decay": (1, 2, 128, 16, 16, 0.0),
     "short-t10": (1, 2, 10, 64, 64, 2.0),
+    "ring-t1000": (2, 8, 1000, 64, 64, 2.0),
+    "rwkv6-1.6b-model-decays": (4, 32, 4096, 64, 64, 6.0),
 }
 
 

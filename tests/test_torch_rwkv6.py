@@ -21,10 +21,20 @@ r, k, v; decays w = exp(-exp(N(-sharpness, 1))); u and s0 at 0.1 N.
 * The model-layout adapter, the port's ``rwkv_scan_chunked`` and
   ``rwkv_scan_ref`` against the reference's.
 * The dispatch and the refusals (mixed devices, shapes).
+* ``chip_smoke.py``'s emulated faults of a chunk-parallel kernel
+  (``wrong_rwkv6``: a late chunk's entering state zeroed, one channel of
+  the state missing a chunk's decay, a chunk's bonus diagonal dropped)
+  each fail the card's output tolerance (``RWKV_TOL``), f32 and bf16, at
+  test_kernels.py's decays and at the model's, while the plain version
+  carried across the same split of chunks stays within it.
 
 The kernel itself is held to the plain version on a card by
 tests/test_torch_cuda.py (marker ``cuda``) and by ``chip_smoke.py``.
 """
+
+import functools
+import importlib.util
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -210,3 +220,40 @@ def test_dispatch_and_refusals():
                                                                  32, 64]
     with pytest.raises(ValueError, match="chunk length 48"):
         K._tile(48, 100)
+
+
+@functools.lru_cache(maxsize=1)
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports only numpy and torch)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("sharpness", [2.0, 6.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_emulated_faults_fail_the_card_tolerance(dtype, sharpness):
+    """What chip_smoke.py checks at rwkv6-1.6b's shape, at a small one (20
+    chunks of 16, 4 x 12 heads of 16): each faulty output leaves the
+    tolerance the kernel is held to, and the plain version carried across
+    the same split of chunks stays within it."""
+    cs = _chip_smoke()
+    atol, rtol = cs.RWKV_TOL[dtype]
+    r, k, v, w, u, s0 = _t(*_inputs(21, 4, 12, 320, 16, sharpness))
+    args = (r.to(dtype), k.to(dtype), v.to(dtype), w, u, s0)
+    want_o, want_s = K.rwkv6_plain(*args, chunk=16)
+    split = 16 * 16
+    o1, s1 = K.rwkv6_plain(*(x[:, :, :split] for x in args[:4]), u, s0,
+                           chunk=16)
+    o2, s2 = K.rwkv6_plain(*(x[:, :, split:] for x in args[:4]), u, s1,
+                           chunk=16)
+    assert cs.tol_ratio(torch.cat([o1, o2], dim=2), want_o,
+                        [(atol, rtol)]) <= 1.0
+    assert cs.tol_ratio(s2, want_s, [(1e-4, 1e-4)]) <= 1.0
+    wrong = cs.wrong_rwkv6(K, args, 16)
+    assert len(wrong) == 3
+    for what, (bad_o, bad_s) in wrong.items():
+        assert bad_o.dtype == dtype and bad_o.shape == want_o.shape, what
+        assert cs.tol_ratio(bad_o, want_o, [(atol, rtol)]) > 1.0, what
