@@ -11,18 +11,28 @@ script exits non-zero:
    build of every CUDA source of the port (one ``nvcc`` each, all started
    together, at first use);
 2. the water-fill kernel (K1) against its plain PyTorch version on the
-   card, bitwise, at widths 8 ... 5120 (more than one lane per thread
-   above 1024) and on degenerate rows, with a rerun and the launch counter;
+   card, bitwise, single calls and pairs (both phases of a cell step in
+   one launch), at widths 8 ... 5120 (a warp per row up to 256 lanes, a
+   block per row above), B = 1 rows at 8, 128 and 1024, rows whose guard
+   is false at entry and degenerate rows, with reruns and the launch
+   counter (one per call or pair);
 3. the accel path: the 4 seeds x 4 policies x 4 error alphas = 64-cell
    matrix on the full paper FB workload (100 jobs, 100 machines, 400 map
    and 200 reduce slots) through ``run_cells_accel(device="cuda")``,
    cold and warm, then once more with the plain water-fill, which must
    give the same summaries; every job completes and hfsp and srpt beat
-   fifo on mean sojourn at alpha 0 on every seed;
+   fifo on mean sojourn at alpha 0 on every seed; one K1 launch per hfsp
+   step by counter (and by name in a profile of the hfsp batch, in
+   phase 5);
 4. wide rows: 4 hfsp cells of 1000 ``fb_scaled`` jobs on 100 machines
    (width 1024) through the same entry point, kernel and plain version;
-5. K1 timing on inputs captured from the accel path, beside the bound of
-   the work, and a short profile of the hfsp step;
+5. K1 timing on inputs captured from the accel path (the hfsp batch's
+   first 256 steps at 16 x 128 and the wide cells' at 4 x 1024), as
+   pairs and as single-phase calls, graph-replayed, beside the bound of
+   the work, the host time per step and the floor any launch pays (a
+   one-element ``add_``); the main path's hfsp batch once more under the
+   profiler (one K1 launch per step by name), the kernels of one hfsp step
+   counted in a CUDA graph, and a short profile of the hfsp step;
 6. the flash attention kernel (K2) against its plain PyTorch version on
    the card, f32 (the CUDA-core kernel ``flash_fwd``, atol = rtol = 2e-5)
    and bf16 (the tensor-core kernel ``flash_tc``, both atol 2e-2 and
@@ -205,6 +215,37 @@ def graph_ms(fn, replays: int = 10) -> float:
     return start.elapsed_time(end) / replays
 
 
+def graph_kernels(fn) -> int:
+    """The kernels ``fn()`` launches: the kernel nodes of a CUDA graph it
+    is captured in, as the CUDA driver API reports them (no profiler)."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind = ctypes.c_int(-1)
+    kernels = 0
+    for node in nodes:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    torch.cuda.synchronize()
+    return kernels
+
+
 def bits(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.int64)
 
@@ -267,18 +308,24 @@ def to_dev(caps, ws, slots, live, dev):
             torch.as_tensor(live, dtype=torch.bool, device=dev))
 
 
-def wf_bound(calls) -> tuple[float, str, int, int]:
-    """(bound_ms, bound_by, bytes, ops) over a list of water-fill input
-    tuples: each input read once and the output written once, and the
-    rounds these inputs need (counted by the plain version)."""
+def wf_bound(launches) -> tuple[float, str, int, int]:
+    """(bound_ms, bound_by, bytes, ops) over water-fill launches, each
+    ``(ws, phases)`` with ``phases`` a list of ``(caps, slots, live)``
+    (one for a single call, two for a pair): ``ws`` read once, each
+    phase's caps, live mask and slots read once and its output written
+    once, and the rounds these inputs need (counted by the plain
+    version)."""
     from repro_torch.accel import waterfill as wf
 
     nbytes = ops = 0
-    for caps, ws, slots, live in calls:
-        b, w = caps.shape
-        nbytes += b * w * (8 + 8 + 1 + 8) + b * 8
-        _, rounds = wf._fill_rounds(*wf._padded(caps, ws, slots, live)[:4])
-        ops += int(rounds.sum()) * wf._bucket(w) * WF_OPS_PER_LANE_ROUND
+    for ws, phases in launches:
+        b, w = ws.shape
+        nbytes += b * w * 8
+        for caps, slots, live in phases:
+            nbytes += b * w * (8 + 1 + 8) + b * 8
+            _, rounds = wf._fill_rounds(
+                *wf._padded(caps, ws, slots, live)[:4])
+            ops += int(rounds.sum()) * wf._bucket(w) * WF_OPS_PER_LANE_ROUND
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F64_PER_S * 1e3
     if t_bytes >= t_ops:
@@ -286,41 +333,70 @@ def wf_bound(calls) -> tuple[float, str, int, int]:
     return t_ops, "operations", nbytes, ops
 
 
+def pair_launch(pair):
+    """A captured pair ``(caps_m, caps_r, ws, slots_m, slots_r, live_m,
+    live_r)`` as :func:`wf_bound` takes it."""
+    caps_m, caps_r, ws, slots_m, slots_r, live_m, live_r = pair
+    return ws, [(caps_m, slots_m, live_m), (caps_r, slots_r, live_r)]
+
+
 def phase_kernel_vs_plain():
     from repro_torch.accel import waterfill as wf
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2013)
-    cases = [(f"random-W{w}", wf_rows(rng, 64, w))
-             for w in (8, 32, 128, 1024, 3072, 5120)]
+    cases = []
+    for b, w in ((64, 8), (64, 32), (64, 128), (64, 1024), (64, 3072),
+                 (64, 5120), (1, 8), (1, 128), (1, 1024)):
+        m, r = wf_rows(rng, b, w), wf_rows(rng, b, w)
+        if b > 1:  # rows whose guard is false at entry
+            m[3][0] = False  # no live lane
+            r[2][1] = 0.0  # no free slot
+        cases.append((f"random-B{b}-W{w}", m, r))
     # The degenerate rows of tests/test_accel.py: no live entries, no
     # free slots, slots exceeding total caps.
     for name, slots, live in (("no-live", 10.0, np.zeros(8, bool)),
                               ("no-slots", 0.0, np.ones(8, bool)),
                               ("excess-slots", 1e6, np.ones(8, bool))):
-        cases.append((name, (np.arange(8.0)[None], np.ones((1, 8)),
-                             np.array([slots]), live[None])))
-    for name, rows in cases:
-        args = to_dev(*rows, dev)
+        rows = (np.arange(8.0)[None], np.ones((1, 8)), np.array([slots]),
+                live[None])
+        cases.append((name, rows, rows))
+    for name, m, r in cases:
+        caps_m, ws, slots_m, live_m = to_dev(*m, dev)
+        caps_r, _, slots_r, live_r = to_dev(*r, dev)
+        pair = (caps_m, caps_r, ws, slots_m, slots_r, live_m, live_r)
         before = wf.launches
-        got = wf.water_fill_cuda(*args)
-        again = wf.water_fill_cuda(*args)
-        want = wf.water_fill_reference(*args)
+        got = wf.water_fill_cuda(caps_m, ws, slots_m, live_m)
+        again = wf.water_fill_cuda(caps_m, ws, slots_m, live_m)
+        got_pair = wf.water_fill_pair_cuda(*pair)
+        again_pair = wf.water_fill_pair_cuda(*pair)
+        want = wf.water_fill_pair_reference(*pair)
         torch.cuda.synchronize()
-        if wf.launches != before + 2:
-            raise AssertionError(f"{name}: launch counter did not advance")
-        if not torch.equal(bits(got), bits(want)):
-            err = (got - want).abs().max().item()
-            raise AssertionError(f"{name}: kernel != plain version ({err})")
-        if not torch.equal(bits(got), bits(again)):
-            raise AssertionError(f"{name}: kernel rerun not bitwise equal")
-        ms = graph_ms(lambda: [wf.water_fill_cuda(*args) for _ in range(20)]) / 20
-        call_ms = cuda_ms(lambda: wf.water_fill_cuda(*args), 50)
-        plain_ms = cuda_ms(lambda: wf.water_fill_reference(*args), 5)
-        bound_ms, bound_by, _, _ = wf_bound([args])
-        emit("kernel_vs_plain", case=name, shape=list(args[0].shape),
-             bitwise_equal=True, max_abs_err=0.0, ms=ms, call_ms=call_ms,
-             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if wf.launches != before + 4:
+            raise AssertionError(f"{name}: launch counter did not advance "
+                                 "by one per call and pair")
+        for label, g, w in (("single", got, want[0]),
+                            ("pair MAP", got_pair[0], want[0]),
+                            ("pair REDUCE", got_pair[1], want[1])):
+            if not torch.equal(bits(g), bits(w)):
+                err = (g - w).abs().max().item()
+                raise AssertionError(f"{name}: {label} != plain ({err})")
+        for g, a in ((got, again), *zip(got_pair, again_pair)):
+            if not torch.equal(bits(g), bits(a)):
+                raise AssertionError(f"{name}: kernel rerun not bitwise equal")
+        single = (caps_m, ws, slots_m, live_m)
+        ms = graph_ms(lambda: [wf.water_fill_cuda(*single)
+                               for _ in range(20)]) / 20
+        pair_ms = graph_ms(lambda: [wf.launch_pair(*pair)
+                                    for _ in range(20)]) / 20
+        call_ms = cuda_ms(lambda: wf.water_fill_cuda(*single), 50)
+        plain_ms = cuda_ms(lambda: wf.water_fill_reference(*single), 5)
+        bound_ms, bound_by, _, _ = wf_bound(
+            [(ws, [(caps_m, slots_m, live_m)])])
+        emit("kernel_vs_plain", case=name, shape=list(ws.shape),
+             bitwise_equal=True, max_abs_err=0.0, ms=ms, pair_ms=pair_ms,
+             call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+             bound_by=bound_by)
 
 
 def main_matrix():
@@ -376,8 +452,6 @@ def phase_main_path():
     warm_s = time.perf_counter() - t0
     plain = run_cells_accel(specs, device="cuda", impl="torch")
 
-    if launches <= 0:
-        raise AssertionError("main path launched no water-fill kernel")
     if drop_wall(cold) != drop_wall(warm):
         raise AssertionError("warm rerun differs from cold run")
     if drop_wall(cold) != drop_wall(plain):
@@ -413,6 +487,12 @@ def phase_main_path():
                      for s in SEEDS for a in ALPHAS)
     max_hfsp_steps = max(by[(s, "hfsp", a)]["accel_steps"]
                          for s in SEEDS for a in ALPHAS)
+    # One K1 launch (both virtual clusters) per step of the hfsp batch,
+    # which runs whole chunks of 512 steps until its last cell is done.
+    steps_run = -(-max_hfsp_steps // 512) * 512
+    if launches != steps_run:
+        raise AssertionError(f"main path: {launches} water-fill launches, "
+                             f"want one per hfsp step ({steps_run})")
     emit("main_path", cells=len(specs), jobs_per_cell=100,
          cold_s=cold_s, warm_s=warm_s,
          cold_cells_per_s=len(specs) / cold_s,
@@ -456,25 +536,27 @@ def phase_wide_rows():
          steps=[r["accel_steps"] for r in res],
          mean_sojourn_s=[r["mean_sojourn_s"] for r in res],
          plain_equal=True)
+    return specs
 
 
-def captured_calls(n_steps: int):
-    """Water-fill inputs of the main path's hfsp batch (16 cells, width
-    128), captured over its first ``n_steps`` steps."""
+def captured_calls(specs, n_steps: int):
+    """Water-fill inputs of the packed batch of ``specs`` as the cell step
+    hands them to K1, one pair ``(caps_m, caps_r, ws, slots_m, slots_r,
+    live_m, live_r)`` per step, over its first ``n_steps`` steps."""
     from repro_torch.accel import cell_step, synthesize_cell
     from repro_torch.accel import waterfill as wf
 
-    specs = [s for s in main_matrix() if s.scheduler.policy == "hfsp"]
     params = cell_step.params_from_numpy(
         cell_step.pack_cells([synthesize_cell(s) for s in specs]), "cuda")
     state = cell_step._to_tensors(
         cell_step.init_state({k: v.cpu().numpy() for k, v in params.items()}),
         params["arrival"].device)
+    wf.check_batch(params["weight"], params["map_slots"], params["red_slots"])
     calls = []
 
-    def record(caps, ws, slots, live):
-        calls.append((caps, ws, slots, live))
-        return wf.water_fill_cuda(caps, ws, slots, live)
+    def record(*pair):
+        calls.append(pair)
+        return wf.launch_pair(*pair)
 
     with torch.no_grad():
         for _ in range(n_steps):
@@ -483,33 +565,116 @@ def captured_calls(n_steps: int):
     return params, state, calls
 
 
-def phase_kernel_timing(main_launches: int):
-    from repro_torch.accel import cell_step
+def k1_timing(pairs) -> dict:
+    """K1 on captured pairs: bitwise against the plain version as pairs
+    and as single-phase calls; device time per pair launch and per
+    single-phase call, each replayed from a CUDA graph; host time per step
+    as the main path pays it (one ``launch_pair``) and as two checked
+    single calls pay it; the plain version's time; the bound; and the
+    rounds the inputs need."""
     from repro_torch.accel import waterfill as wf
 
-    params, state, calls = captured_calls(256)
-    got = [wf.water_fill_cuda(*c) for c in calls]
-    want = [wf.water_fill_reference(*c) for c in calls]
+    singles = [c for p in pairs
+               for c in ((p[0], p[2], p[3], p[5]), (p[1], p[2], p[4], p[6]))]
+    got = [wf.launch_pair(*p) for p in pairs]
+    got_singles = [wf.water_fill_cuda(*c) for c in singles]
+    want = [wf.water_fill_pair_reference(*p) for p in pairs]
     torch.cuda.synchronize()
-    max_err = max((g - w).abs().max().item() for g, w in zip(got, want))
-    if not all(torch.equal(bits(g), bits(w)) for g, w in zip(got, want)):
-        raise AssertionError(f"main-path inputs: kernel != plain ({max_err})")
+    flat_want = [w for pair in want for w in pair]
+    flat_got = [g for pair in got for g in pair]
+    max_err = max((g - w).abs().max().item()
+                  for g, w in zip(flat_got, flat_want))
+    if not all(torch.equal(bits(g), bits(w))
+               for g, w in zip(flat_got + got_singles, flat_want * 2)):
+        raise AssertionError(f"captured inputs: kernel != plain ({max_err})")
 
-    def run_all(fn):
+    def run_all(fn, calls):
         return lambda: [fn(*c) for c in calls]
 
-    # ms: the kernel's device time, its launches replayed from a CUDA
-    # graph; call_ms: one wrapper call as the main path makes it (host
-    # checks and launch included); plain_ms: the plain version's call.
-    ms = graph_ms(run_all(wf.water_fill_cuda)) / len(calls)
-    call_ms = cuda_ms(run_all(wf.water_fill_cuda), 5) / len(calls)
-    plain_ms = cuda_ms(run_all(wf.water_fill_reference), 2) / len(calls)
-    bound_total, bound_by, nbytes, ops = wf_bound(calls)
-    bound_ms = bound_total / len(calls)
+    def host_s(fn, calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in calls:
+            fn(*c)
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t
+
+    n = len(pairs)
+    pair_ms = graph_ms(run_all(wf.launch_pair, pairs)) / n
+    single_ms = graph_ms(run_all(wf.water_fill_cuda, singles)) / len(singles)
+    host_pair = min(host_s(wf.launch_pair, pairs) for _ in range(3)) / n
+    host_singles = min(host_s(wf.water_fill_cuda, singles)
+                       for _ in range(3)) / n
+    call_ms = cuda_ms(run_all(wf.launch_pair, pairs), 5) / n
+    plain_ms = cuda_ms(run_all(wf.water_fill_pair_reference, pairs), 2) / n
+    bound_total, bound_by, nbytes, ops = wf_bound(
+        [pair_launch(p) for p in pairs])
+    slowest = []  # rounds of the slowest row of each launch
+    for caps_m, caps_r, ws, slots_m, slots_r, live_m, live_r in pairs:
+        _, r = wf._fill_rounds(torch.cat([caps_m, caps_r]),
+                               torch.cat([ws, ws]),
+                               torch.cat([slots_m, slots_r]),
+                               torch.cat([live_m, live_r]))
+        slowest.append(int(r.max()))
+    return {
+        "shape": list(pairs[0][2].shape), "steps": n,
+        "ms_per_launch": pair_ms, "ms_per_hfsp_step": pair_ms,
+        "single_phase_ms": single_ms, "two_singles_ms_per_step": 2 * single_ms,
+        "host_us_per_step": host_pair * 1e6,
+        "two_singles_host_us_per_step": host_singles * 1e6,
+        "call_ms": call_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_total / n, "bound_by": bound_by,
+        "bytes_per_launch": nbytes / n, "ops_per_launch": ops / n,
+        "max_abs_err": max_err,
+        "rounds_slowest_row": {"sum": sum(slowest), "max": max(slowest),
+                               "mean": sum(slowest) / n},
+    }
+
+
+def phase_kernel_timing(main_launches: int, wide_specs):
+    from repro_torch.accel import cell_step, synthesize_cell
+    from repro_torch.accel import waterfill as wf
+
+    hfsp_specs = [s for s in main_matrix() if s.scheduler.policy == "hfsp"]
+    params, state, pairs = captured_calls(hfsp_specs, 256)
+    paper = k1_timing(pairs)
+    emit("k1_timing", cell="paper-64 hfsp batch", **paper)
+    del pairs
+    _, _, wide_pairs = captured_calls(wide_specs, 256)
+    wide = k1_timing(wide_pairs)
+    emit("k1_timing", cell="fb-1000-wide", **wide)
+    del wide_pairs
+    # The floor any launch pays: a one-element add_, graph-replayed as K1.
+    one = torch.zeros(1, device="cuda")
+    floor_ms = graph_ms(lambda: [one.add_(1.0) for _ in range(256)]) / 256
+    emit("launch_floor", op="one-element add_", ms_per_launch=floor_ms)
+
+    # The main path's K1 launches by kernel name: its hfsp batch once more,
+    # under the profiler.  Profiles run after the timed accel phases: a
+    # process that has run the profiler launches kernels more slowly.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cell_step.run_packed(cell_step.params_from_numpy(
+            cell_step.pack_cells([synthesize_cell(s) for s in hfsp_specs]),
+            "cuda"))
+        torch.cuda.synchronize()
+    by_name = sum(ev.count for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and "waterfill" in ev.key)
+    if by_name != main_launches:
+        raise AssertionError(f"hfsp batch: {by_name} water-fill kernels by "
+                             f"name in the profile, want {main_launches}")
+    emit("main_path_by_profile", waterfill_launches=by_name)
+    # The kernels one hfsp step launches, counted by the CUDA driver API in a
+    # graph of the step (the profiler's count below may miss a few).
+    with torch.no_grad():
+        step_kernels = graph_kernels(
+            lambda: cell_step._cell_step(params, state, wf.launch_pair))
 
     # Short profile of the hfsp step: device time by kernel and the
     # device's busy share of the wall.
-    from torch.profiler import ProfilerActivity, profile
 
     n_prof = 32
     torch.cuda.synchronize()
@@ -517,7 +682,7 @@ def phase_kernel_timing(main_launches: int):
         t0 = time.perf_counter()
         with torch.no_grad():
             for _ in range(n_prof):
-                state = cell_step._cell_step(params, state, wf.water_fill_cuda)
+                state = cell_step._cell_step(params, state, wf.launch_pair)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [ev for ev in prof.key_averages()
@@ -526,6 +691,9 @@ def phase_kernel_timing(main_launches: int):
     wf_events = [ev for ev in kernels if "waterfill" in ev.key]
     wf_us = sum(ev.self_device_time_total for ev in wf_events)
     wf_count = sum(ev.count for ev in wf_events)
+    if wf_count != n_prof:
+        raise AssertionError(f"hfsp step profile: {wf_count} water-fill "
+                             f"kernels in {n_prof} steps, want one a step")
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:5]
     measured = total_dev_us > 0
     emit("profile_hfsp_step", steps=n_prof, batch=list(params["arrival"].shape),
@@ -535,6 +703,8 @@ def phase_kernel_timing(main_launches: int):
          device_busy_share=(total_dev_us / 1e6 / wall) if measured
          else "not measured",
          kernel_launches_per_step=sum(ev.count for ev in kernels) / n_prof,
+         kernel_launches_per_step_by_graph=step_kernels,
+         waterfill_launches_per_step=wf_count / n_prof,
          waterfill_share_of_device=(wf_us / total_dev_us) if measured
          else "not measured",
          waterfill_device_us_per_launch=(wf_us / wf_count) if wf_count
@@ -548,17 +718,23 @@ def phase_kernel_timing(main_launches: int):
         "source": "src/repro_torch/accel/csrc/waterfill.cu",
         "replaces": "src/repro/accel/waterfill_pallas.py:77",
         "launches": main_launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "max_abs_err": max(paper["max_abs_err"], wide["max_abs_err"]),
+        "ms": paper["ms_per_launch"],
+        "plain_ms": paper["plain_ms"],
+        "bound_ms": paper["bound_ms"],
+        "bound_by": paper["bound_by"],
         "library_ms": None,
-        "call_ms": call_ms,
-        "shape": list(calls[0][0].shape),
-        "timed_calls": len(calls),
-        "bytes_per_call": nbytes / len(calls),
-        "ops_per_call": ops / len(calls),
+        "call_ms": paper["call_ms"],
+        "shape": [2] + paper["shape"],
+        "timed_launches": paper["steps"],
+        "bytes_per_launch": paper["bytes_per_launch"],
+        "ops_per_launch": paper["ops_per_launch"],
+        "single_phase_ms": paper["single_phase_ms"],
+        "host_us_per_step": paper["host_us_per_step"],
+        "launch_floor_ms": floor_ms,
+        "wide_4x1024": {k: wide[k] for k in (
+            "ms_per_launch", "single_phase_ms", "plain_ms", "bound_ms",
+            "bound_by")},
     }
 
 
@@ -1691,8 +1867,9 @@ def main() -> int:
     card = run_phase("environment", phase_environment)
     run_phase("kernel_vs_plain", phase_kernel_vs_plain)
     main_launches = run_phase("main_path", phase_main_path)
-    run_phase("wide_rows", phase_wide_rows)
-    k1 = run_phase("kernel_timing", phase_kernel_timing, main_launches)
+    wide_specs = run_phase("wide_rows", phase_wide_rows)
+    k1 = run_phase("kernel_timing", phase_kernel_timing, main_launches,
+                   wide_specs)
     run_phase("flash_kernel_vs_plain", phase_flash_kernel_vs_plain, args.seed)
     cfg, params, serve_launches, per_prefill = run_phase(
         "serve_main_path", phase_serve_main_path, args.seed)

@@ -1,4 +1,6 @@
-"""The timing loop shared by ``k3_time.py`` and ``k4_time.py``.
+"""The timing loop shared by ``k3_time.py`` and ``k4_time.py``, the
+``--trees`` runner those two and ``k1_time.py`` share, and the CUDA-graph
+helpers of ``k1_time.py``.
 
 Each of those scripts supplies one kernel's inputs and its call; this
 module times it and runs it once per checkout, in turns.  It is imported,
@@ -52,6 +54,64 @@ def measure(kernel, plain, bf16: tuple, f32: tuple, prefix: str) -> dict:
         for ev in prof.key_averages()
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count}
     return out
+
+
+def graph_ms(fn, replays: int = 10) -> float:
+    """Mean device time of the launches ``fn()`` issues, captured once in
+    a CUDA graph and replayed: no host time between launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+def graph_kernels(fn) -> int:
+    """The kernels ``fn()`` launches: the kernel nodes of a CUDA graph it
+    is captured in, as the CUDA driver API reports them (no profiler)."""
+    import ctypes
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind = ctypes.c_int(-1)
+    kernels = 0
+    for node in nodes:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    torch.cuda.synchronize()
+    return kernels
 
 
 def main(doc: str, script: str, run) -> int:

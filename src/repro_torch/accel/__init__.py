@@ -29,5 +29,8 @@ from repro_torch.accel.sweep_exec import (  # noqa: F401
 from repro_torch.accel.waterfill import (  # noqa: F401
     water_fill,
     water_fill_cuda,
+    water_fill_pair,
+    water_fill_pair_cuda,
+    water_fill_pair_reference,
     water_fill_reference,
 )

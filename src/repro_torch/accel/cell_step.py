@@ -22,17 +22,20 @@ with a fully static shape, so a whole sweep matrix advances as one
   srpt=2, las=3); every step computes all four priority keys and selects
   by code.  hfsp's key comes from twin per-phase virtual clusters: a
   weighted water-fill over live jobs' caps (THE kernel site,
-  :mod:`repro_torch.accel.waterfill`) drains each job's virtual size.
+  :mod:`repro_torch.accel.waterfill`; both phases in one call) drains
+  each job's virtual size.
 
 Where JAX has ``jit(vmap(scan(step)))``, the port writes the batch out as
 the leading dimension of every tensor and runs ``t_chunk`` steps as a
 Python loop; PyTorch's asynchronous launches keep the device fed, and
 only the ``(B,)`` done mask crosses to the host between chunks.
 
-The water-fill ``impl`` seam: ``"cuda"`` (the kernel; CUDA tensors only),
-``"torch"`` (the plain version, any device) or ``"none"`` (batches with
-no hfsp cell never read the virtual allocations).  The default is
-``"cuda"`` on a CUDA device and ``"torch"`` on the CPU.
+The water-fill ``impl`` seam hands the step a pair function, which
+fills both phases' virtual clusters: ``"cuda"`` (the kernel, one launch
+per step; CUDA tensors only), ``"torch"`` (the plain version, any
+device) or ``"none"`` (batches with no hfsp cell never read the virtual
+allocations).  The default is ``"cuda"`` on a CUDA device and
+``"torch"`` on the CPU.
 """
 
 from __future__ import annotations
@@ -146,7 +149,7 @@ def _clip(x, lo: float, hi):
     return torch.minimum(torch.clamp(x, min=lo), hi)
 
 
-def _cell_step(params, state, water_fill):
+def _cell_step(params, state, water_fill_pair):
     """Advance every cell of the batch by one event window; an exact
     no-op (bitwise) for cells already done."""
     t = state["t"]
@@ -178,7 +181,6 @@ def _cell_step(params, state, water_fill):
               params["m_tasks"]),
         0.0,
     )
-    vm_alloc = water_fill(vm_cap, params["weight"], params["map_slots"], vm_live)
     vr_live = r_active & (state["vr_rem"] > 0.0)
     vr_cap = torch.where(
         vr_live,
@@ -186,7 +188,10 @@ def _cell_step(params, state, water_fill):
               params["r_tasks"]),
         0.0,
     )
-    vr_alloc = water_fill(vr_cap, params["weight"], params["red_slots"], vr_live)
+    vm_alloc, vr_alloc = water_fill_pair(
+        vm_cap, vr_cap, params["weight"], params["map_slots"],
+        params["red_slots"], vm_live, vr_live,
+    )
 
     p = params["policy"][:, None]
 
@@ -254,12 +259,15 @@ def _cell_step(params, state, water_fill):
     }
 
 
-def _zero_fill(caps, ws, slots, live):
+def _zero_fill_pair(caps_m, caps_r, *_):
     # Batches with no hfsp cell never read the virtual allocations.
-    return caps * 0.0
+    return caps_m * 0.0, caps_r * 0.0
 
 
-def _resolve_impl(impl: str | None, device: torch.device):
+def _resolve_impl(impl: str | None, params: dict):
+    """The pair function of ``impl`` for the batch ``params``; the
+    kernel's batch checks run here, once."""
+    device = params["arrival"].device
     if impl is None:
         impl = "cuda" if device.type == "cuda" else "torch"
     if impl == "cuda":
@@ -267,11 +275,13 @@ def _resolve_impl(impl: str | None, device: torch.device):
             raise ValueError(
                 f"water-fill impl 'cuda' needs CUDA tensors, got {device}"
             )
-        return wf.water_fill_cuda
+        wf.check_batch(params["weight"], params["map_slots"],
+                       params["red_slots"])
+        return wf.launch_pair
     if impl == "torch":
-        return wf.water_fill_reference
+        return wf.water_fill_pair_reference
     if impl == "none":
-        return _zero_fill
+        return _zero_fill_pair
     raise ValueError(f"unknown water-fill impl {impl!r}; expected {IMPLS}")
 
 
@@ -293,7 +303,7 @@ def run_packed(
     the batch (a liveness bug, not a tuning knob).  Returns the final
     state as numpy arrays."""
     device = params["arrival"].device
-    water_fill = _resolve_impl(impl, device)
+    water_fill_pair = _resolve_impl(impl, params)
     state = _to_tensors(init_state({
         k: params[k].cpu().numpy() for k in ("m_work", "r_work", "est_m",
                                              "est_r", "present")
@@ -303,7 +313,7 @@ def run_packed(
     with torch.no_grad():
         for chunk in range(max_chunks):
             for _ in range(int(t_chunk)):
-                state = _cell_step(params, state, water_fill)
+                state = _cell_step(params, state, water_fill_pair)
             cell_done = (state["done"] | absent).all(dim=-1).cpu().numpy()
             if on_chunk is not None:
                 on_chunk(chunk + 1, int(cell_done.sum()), b)

@@ -44,7 +44,15 @@ that has only the port's dependencies:
   own; bitwise-equal reruns and the launch counter; the model layout's
   strided views; the refusals;
 * the zamba2 SMOKE prefill (head dim 32, so that K2 takes it) with K4
-  and K2 against the plain routes, f32, 1e-4.
+  and K2 against the plain routes, f32, 1e-4;
+* K1 (the water-fill) against its plain version, bitwise: single calls
+  and pairs (both phases of a cell step in one launch, through the
+  checked entry and through ``launch_pair``) at widths 8 ... 5120 (the
+  warp route up to 256 lanes, the block route above), B = 1 rows at 8,
+  128 and 1024, and rows whose guard is false at entry (no live lane, no
+  free slot); bitwise reruns and one launch per call or pair (the plain
+  version is held to the reference on the CPU in
+  tests/test_torch_waterfill.py).
 """
 
 import dataclasses
@@ -54,6 +62,7 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.accel import waterfill as wf
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.rwkv6 import kernel as K3
 from repro_torch.kernels.rwkv6.ops import rwkv6_chunked
@@ -389,3 +398,56 @@ def test_zamba_prefill_with_kernels_matches_plain_routes_on_card(cuda):
     assert K.launches == k2 + cfg.num_layers // cfg.shared_attn_period
     want = make_prefill_step(cfg)(params, {"tokens": tok})
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# K1: the water-fill
+# ---------------------------------------------------------------------------
+def _wf_phase(rng, b, width, guard, device):
+    """One phase's caps, slots and live mask; with ``guard``, row 0's
+    guard is false at entry (no live lane or no free slot)."""
+    caps = rng.integers(0, 50, (b, width)).astype(np.float64)
+    caps[rng.random((b, width)) < 0.2] = 0.0
+    live = rng.random((b, width)) < 0.7
+    slots = rng.uniform(0.0, caps.sum(1) * 1.2 + 1.0)
+    if guard == "no-live":
+        live[0] = False
+    elif guard == "no-slots":
+        slots[0] = 0.0
+    return (torch.from_numpy(caps).to(device),
+            torch.from_numpy(slots).to(device),
+            torch.from_numpy(live).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,width,guard", [
+    (64, 8, "no-live"), (64, 32, "no-slots"), (64, 128, "no-live"),
+    (64, 256, "no-slots"), (64, 1024, "no-live"), (64, 3072, "no-slots"),
+    (64, 5120, None), (1, 8, None), (1, 128, None), (1, 1024, None),
+    (1, 8, "no-live"), (1, 128, "no-slots"), (1, 1024, "no-slots"),
+])
+def test_waterfill_kernel_matches_plain_version_on_card(cuda, b, width, guard):
+    rng = np.random.default_rng(width + b)
+    ws = torch.from_numpy(rng.uniform(0.5, 2.0, (b, width))).to(cuda)
+    caps_m, slots_m, live_m = _wf_phase(rng, b, width, guard, cuda)
+    caps_r, slots_r, live_r = _wf_phase(rng, b, width,
+                                        "no-slots" if guard else None, cuda)
+    pair = (caps_m, caps_r, ws, slots_m, slots_r, live_m, live_r)
+    before = wf.launches
+    single = wf.water_fill_cuda(caps_m, ws, slots_m, live_m)
+    got = wf.water_fill_pair_cuda(*pair)
+    wf.check_batch(ws, slots_m, slots_r)
+    again = wf.launch_pair(*pair)
+    want = wf.water_fill_pair_reference(*pair)
+    torch.cuda.synchronize()
+    assert wf.launches == before + 3
+
+    def bits(x):
+        return x.contiguous().view(torch.int64)
+
+    assert torch.equal(bits(single), bits(want[0]))
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(bits(g), bits(w))
+        assert torch.equal(bits(a), bits(g))
+    if guard == "no-live":
+        assert not got[0][0].any()

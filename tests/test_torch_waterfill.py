@@ -7,12 +7,14 @@ reference (repro.accel.waterfill_pallas / vcluster_jax).
   max(1, slots)``: XLA sums in another order than the port's fixed tree,
   so the last bits may differ;
 * the plain version's summation order is the kernel's (checked against a
-  numpy transcription of the kernel's thread/tree order), padding is
-  bitwise neutral, and batch rows equal single-row calls bitwise;
+  numpy transcription of the kernel's warp butterflies), padding is
+  bitwise neutral, batch rows equal single-row calls bitwise, and the
+  pair form (both phases of a cell step) equals two single calls;
 * the dispatch rule: CPU tensors take the plain version, the CUDA
-  wrapper refuses CPU tensors;
-* on a card (marker ``cuda``): the kernel equals the plain version
-  bitwise, reruns are bitwise equal, and the launch counter advances.
+  wrappers refuse CPU tensors.
+
+The kernel against the plain version on a card is in
+tests/test_torch_cuda.py, which imports no JAX and so runs on a GPU host.
 
 The reference calls ``jax.experimental.enable_x64``, which the installed
 jax no longer has; a module-scoped shim restores it as
@@ -109,28 +111,49 @@ def test_reference_matches_lax_degenerate_rows(slots, live):
                                atol=1e-12 * max(1.0, slots))
 
 
-@pytest.mark.parametrize("width", [8, 128, 3072])
+def _butterfly(v: list) -> list:
+    """A warp's ``__shfl_xor_sync`` butterfly: at each offset, lane i
+    adds its value and lane i ^ offset's (all lanes at once)."""
+    off = 16
+    while off:
+        v = [v[i] + v[i ^ off] for i in range(32)]
+        off //= 2
+    return v
+
+
+@pytest.mark.parametrize("width", [8, 128, 1024, 3072])
 def test_tree_sum_is_the_kernel_order(width):
-    """``_tree_sum`` transcribes csrc/waterfill.cu's order: thread t of
-    min(width, 1024) sums lanes t, t+L, ... from +0.0, then the
-    stride-halving shared-memory tree."""
+    """``_tree_sum`` transcribes csrc/waterfill.cu's order.  A row is cut
+    into 256-lane segments, one warp each (a row of <= 256 lanes is one
+    warp): thread t of segment s sums lanes 256s + t + 32j, j = 0..7, in
+    order from +0.0 (+0.0 past the row), the warp butterflies its 32
+    sums, and lane i of every warp reads segment i's sum (+0.0 past the
+    last segment) and butterflies them again.  Every lane ends with the
+    same bits."""
     rng = np.random.default_rng(width)
     x = rng.standard_normal((3, width)) * 10.0 ** rng.integers(-8, 8, (3, width))
-    nt = min(width, 1024)
+    segments = -(-width // 256)
+    assert segments <= 32
     want = []
     for row in x:
-        sh = [0.0] * nt
-        for t in range(nt):
-            acc = 0.0
-            for lane in range(t, width, nt):
-                acc = acc + float(row[lane])
-            sh[t] = acc
-        s = nt // 2
-        while s > 0:
-            for t in range(s):
-                sh[t] = sh[t] + sh[t + s]
-            s //= 2
-        want.append(sh[0])
+        sums = []
+        for seg in range(segments):
+            part = []
+            for t in range(32):
+                acc = 0.0
+                for j in range(8):
+                    lane = 256 * seg + t + 32 * j
+                    acc = acc + (float(row[lane]) if lane < width else 0.0)
+                part.append(acc)
+            v = _butterfly(part)
+            assert len(set(v)) == 1
+            sums.append(v[0])
+        if segments == 1:
+            want.append(sums[0])
+            continue
+        total = _butterfly(sums + [0.0] * (32 - segments))
+        assert len(set(total)) == 1
+        want.append(total[0])
     got = wf._tree_sum(torch.as_tensor(x)).numpy()
     assert got.tobytes() == np.asarray(want).tobytes()
 
@@ -156,6 +179,33 @@ def test_reference_padding_neutral_and_rowwise_bitwise():
             assert not out[i, len(single):].any()
 
 
+@pytest.mark.parametrize("width", [8, 128, 1024])
+def test_pair_equals_two_single_calls_bitwise(width):
+    """``water_fill_pair`` (both phases of a cell step, sharing the
+    weights) is bitwise two ``water_fill`` calls, rows whose guard is
+    false at entry (no live lane, no free slot) included."""
+    rng = np.random.default_rng(100 + width)
+    b = 6
+    ws = rng.uniform(0.5, 2.0, (b, width))
+    phases = []
+    for _ in range(2):
+        caps = rng.integers(0, 50, (b, width)).astype(np.float64)
+        live = rng.random((b, width)) < 0.3
+        slots = rng.uniform(0.0, caps.sum(1) * 1.2 + 1.0)
+        phases.append((caps, slots, live))
+    live_m = phases[0][2]
+    live_m[0] = False
+    phases[1][1][1] = 0.0
+    (cm, sm, lm), (cr, sr, lr) = phases
+    got = wf.water_fill_pair(_t(cm), _t(cr), _t(ws), _t(sm), _t(sr),
+                             _t(lm, torch.bool), _t(lr, torch.bool))
+    for alloc, (caps, slots, live) in zip(got, phases):
+        want = wf.water_fill(_t(caps), _t(ws), _t(slots), _t(live, torch.bool))
+        assert alloc.shape == (b, width)
+        assert torch.equal(_bits(alloc), _bits(want))
+    assert not got[0][0].any()
+
+
 def test_dispatch_cpu_takes_plain_version_and_cuda_wrapper_refuses_cpu():
     caps, ws, slots, live = _random_rows()[0]
     args = (_t(caps)[None], _t(ws)[None], _t([slots]),
@@ -165,6 +215,11 @@ def test_dispatch_cpu_takes_plain_version_and_cuda_wrapper_refuses_cpu():
                        _bits(wf.water_fill_reference(*args)))
     with pytest.raises(ValueError, match="CUDA tensors"):
         wf.water_fill_cuda(*args)
+    pair = (args[0], args[0], args[1], args[2], args[2], args[3], args[3])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wf.water_fill_pair_cuda(*pair)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wf.check_batch(args[1], args[2], args[2])
     assert wf.launches == before
 
 
@@ -178,27 +233,3 @@ def test_wrapper_validates_inputs():
         wf.water_fill(caps, caps, slots, live.double())
     with pytest.raises(ValueError):
         wf.water_fill(caps, caps, slots[:1], live)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("width", [8, 32, 128, 1024, 3072, 5120])
-def test_kernel_matches_plain_version_on_card(width):
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: the kernel runs only on a GPU")
-    rng = np.random.default_rng(width)
-    b = 64
-    caps = rng.integers(0, 50, (b, width)).astype(np.float64)
-    ws = rng.uniform(0.5, 2.0, (b, width))
-    live = rng.random((b, width)) < 0.7
-    slots = rng.uniform(0.0, caps.sum(1) * 1.2 + 1.0)
-    dev = torch.device("cuda")
-    args = (_t(caps).to(dev), _t(ws).to(dev), _t(slots).to(dev),
-            _t(live, torch.bool).to(dev))
-    before = wf.launches
-    got = wf.water_fill_cuda(*args)
-    again = wf.water_fill_cuda(*args)
-    want = wf.water_fill_reference(*args)
-    torch.cuda.synchronize()
-    assert wf.launches == before + 2
-    assert torch.equal(_bits(got), _bits(want))
-    assert torch.equal(_bits(got), _bits(again))
