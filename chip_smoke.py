@@ -23,17 +23,44 @@ script exits non-zero:
    give the same summaries; every job completes and hfsp and srpt beat
    fifo on mean sojourn at alpha 0 on every seed; one K1 launch per hfsp
    step by counter (and by name in a profile of the hfsp batch, in
-   phase 5);
+   phase 7);
 4. wide rows: 4 hfsp cells of 1000 ``fb_scaled`` jobs on 100 machines
    (width 1024) through the same entry point, kernel and plain version;
-5. K1 timing on inputs captured from the accel path (the hfsp batch's
+5. the discrete-event path (``des_main_path``): paper-fb at full width
+   (``paper_fb_base()``: 100 jobs on 100 machines) through
+   ``run_scenario(device="cuda")`` with ``vc_backend="torch"`` under fifo,
+   fair, hfsp, hfsp with kill preemption, srpt, las and psbs; every job
+   completes, each report equals the port's own ``vc_backend="numpy"``
+   run field for field (wall time and spec aside), and hfsp beats fifo
+   on mean sojourn; then the scheduler-overhead stress cell of
+   benchmarks/bench_sched_overhead.py (``fb_scaled``, 5000 jobs on 1000
+   machines, hfsp, 20000 events) with torch and numpy virtual clusters,
+   each timed on its own: equal completions and passes, events/s and the
+   mean and p99 pass times of both.  On each cell, K1's and the projection kernel's launch
+   counters are > 0 and equal to the calls counted at the
+   ``vcluster_torch`` entry points;
+6. the projection kernel against its plain PyTorch version on the card,
+   bitwise (``project_kernel_vs_plain``): B = 1 at widths 8, 256 and 1024
+   and at 5120 in segments with host compaction, batches with
+   ``n_valid``, rows of only infinite-size jobs, of zero weights and
+   resumed at a level, a width that is not a bucket width and rows
+   stopped at a floor, with reruns and the launch counter; its time at
+   widths 16, 256 and 1024 beside its bound (the operations on the lanes
+   the work touches) and the plain version; one call of
+   ``vcluster_torch.water_fill`` and ``project_finish_times`` (numpy in
+   and out, the host round trip included) against the numpy loops' by
+   job count; then the stress cell once more under the profiler (the
+   device's busy share of the wall, the same launches as the timed run)
+   with its projection calls recorded, and the kernel timed on them
+   (graph-replayed) beside its bound and the plain version;
+7. K1 timing on inputs captured from the accel path (the hfsp batch's
    first 256 steps at 16 x 128 and the wide cells' at 4 x 1024), as
    pairs and as single-phase calls, graph-replayed, beside the bound of
    the work, the host time per step and the floor any launch pays (a
    one-element ``add_``); the main path's hfsp batch once more under the
    profiler (one K1 launch per step by name), the kernels of one hfsp step
    counted in a CUDA graph, and a short profile of the hfsp step;
-6. the flash attention kernel (K2) against its plain PyTorch version on
+8. the flash attention kernel (K2) against its plain PyTorch version on
    the card, f32 (the CUDA-core kernel ``flash_fwd``, atol = rtol = 2e-5)
    and bf16 (the tensor-core kernel ``flash_tc``, both atol 2e-2 and
    atol 4e-3 with rtol 1.6e-2), on the shapes of tests/test_kernels.py,
@@ -44,24 +71,24 @@ script exits non-zero:
    shapes, outputs of deliberately wrong attention (a kv tile dropped,
    the diagonal key dropped past row 1024, the last kv tile dropped for
    the last 128 rows of one head) must fail the bf16 tolerance;
-7. the serving path: olmo-1b at its published widths (16 layers, d_model
+9. the serving path: olmo-1b at its published widths (16 layers, d_model
    2048, vocab 50304; random weights from ``--seed``) through
    ``make_prefill_step(use_flash=True, last_token_only=True)`` on 4 x 4096
    prompt tokens in bf16, cold and warm (16 launches of the tensor-core
    K2 per prefill and none of the CUDA-core one, by counter and by name in
    the profile), a profile of one prefill, then ``greedy_generate`` for 4
    requests of 64 prompt and 32 new tokens;
-8. serving cross-checks in f32 on the same weights: prefill logits with K2
+10. serving cross-checks in f32 on the same weights: prefill logits with K2
    (its f32 route) against the plain version (atol 1e-3), and the last
    prompt position's prefill logits against the decode-cache route's (atol
    1e-3); then in bf16 on 1 x 1024: prefill logits with the tensor-core K2
    against the same prefill through K2's plain version, within 2e-2 of
    max |logit|;
-9. K2 timing at the olmo shape beside its bound, the plain version and
+11. K2 timing at the olmo shape beside its bound, the plain version and
    ``F.scaled_dot_product_attention`` (timed only, never on the path): its
    achieved TFLOP/s, share of the bound and ratio to SDPA, and the f32
    route's time on the same inputs in f32;
-10. the RWKV6 WKV scan kernel (K3: ``rwkv6_scan``, one block per chunk,
+12. the RWKV6 WKV scan kernel (K3: ``rwkv6_scan``, one block per chunk,
     head and batch row, the entering state handed from block to block
     through a two-slot ring per head) against its plain PyTorch version on
     the card, f32 output and state at atol = rtol = 1e-4 and bf16 r/k/v
@@ -74,7 +101,7 @@ script exits non-zero:
     chunk's entering state zeroed, one channel of the state missing a
     chunk's decay, a chunk's bonus diagonal dropped) must fail the output
     tolerance;
-11. the rwkv6 serving path, after olmo-1b's weights are freed: rwkv6-1.6b
+13. the rwkv6 serving path, after olmo-1b's weights are freed: rwkv6-1.6b
     at its published widths (24 layers, d_model 2048, 32 heads of 64,
     d_ff 7168, vocab 65536, untied head; 1,583,941,632 parameters, random
     from ``--seed``) through ``make_prefill_step(use_scan_kernel=True,
@@ -83,15 +110,15 @@ script exits non-zero:
     name in the profile, and the replaced ``rwkv6_fwd`` none), a profile
     of one prefill, then ``greedy_generate`` for 4 requests of 64 prompt
     and 32 new tokens;
-12. rwkv6 cross-checks in f32 on the same weights: 1 x 1024 prefill
+14. rwkv6 cross-checks in f32 on the same weights: 1 x 1024 prefill
     logits with K3 against the plain version and the ``rwkv_scan_chunked``
     route, and the last prompt position's prefill logits against the
     decode route's on 200 tokens (atol 1e-3 each);
-13. K3 timing at the rwkv6 shape beside its bound (and its share of it)
+15. K3 timing at the rwkv6 shape beside its bound (and its share of it)
     and the plain version (no single PyTorch call computes the scan, so no
     library time), in bf16 and with f32 inputs, each against the bound of
     its own input bytes;
-14. the Mamba2 SSD scan (K4: two kernels, ``ssd_cb`` and ``ssd_scan``,
+16. the Mamba2 SSD scan (K4: two kernels, ``ssd_cb`` and ``ssd_scan``,
     one launch count) against its plain PyTorch version on
     the card, f32 y and state at atol = rtol = 1e-4 and bf16 x/B/C (f32
     dt/a) at atol = rtol = 2e-2, on the shapes of tests/test_kernels.py,
@@ -101,7 +128,7 @@ script exits non-zero:
     zamba2-2.7b's shape, three faulty outputs (a late chunk's entering
     state zeroed, one p-slice missing a chunk's decay, a chunk's diagonal
     scores dropped) must fail the y tolerance;
-15. the zamba2 serving path, after rwkv6's weights are freed: zamba2-2.7b
+17. the zamba2 serving path, after rwkv6's weights are freed: zamba2-2.7b
     at its published widths (54 mamba2 layers, d_model 2560, ssm_state 64,
     heads of 64; one shared attention+MLP block of 32 heads of 80 and
     d_ff 10240 after every 6th layer; vocab 32000, tied embeddings;
@@ -113,23 +140,25 @@ script exits non-zero:
     and none of the CUDA-core K2), profiles of a prefill and
     a decode step, then ``greedy_generate`` for 4 requests of 64 prompt
     and 32 new tokens;
-16. zamba2 cross-checks in f32 on the same weights: 1 x 1024 prefill
+18. zamba2 cross-checks in f32 on the same weights: 1 x 1024 prefill
     logits with K4 and K2 against K4's plain version, the
     ``ssd_scan_chunked`` route and K2's plain version, and the last prompt
     position's prefill logits against the decode route's on 200 tokens
     (atol 1e-3 each);
-17. K4 timing at the zamba2 shape beside its bound and the plain version
+19. K4 timing at the zamba2 shape beside its bound and the plain version
     (no single PyTorch call computes the scan, so no library time), in
     bf16 and with f32 inputs, and each of its kernels' profiled time per
     launch, and
     K2 at zamba2's head dim 80 beside its bound, its plain version and
-    ``F.scaled_dot_product_attention``, with the same fields as phase 9;
-18. the ``{"kernels": [...]}`` line (K1, K2, K3, K4), the card's name and
-    power limit, and the final ``{"ok": true, ...}`` line.
+    ``F.scaled_dot_product_attention``, with the same fields as phase 11;
+20. the ``{"kernels": [...]}`` line (K1, K2, K3, K4 and the projection
+    kernel), the card's name and power limit, and the final ``{"ok":
+    true, ...}`` line.
 
-Each main path (the accel matrix, the wide rows, olmo-1b serving, rwkv6
-serving, zamba2 serving) runs with every kernel's launch count set to 0
-just before it and read just after.
+Each main path (the accel matrix, the wide rows, the discrete-event
+path's two cells, olmo-1b serving, rwkv6 serving, zamba2 serving) runs
+with every kernel's launch count set to 0 just before it and read just
+after.
 """
 
 from __future__ import annotations
@@ -253,12 +282,15 @@ def bits(x: torch.Tensor) -> torch.Tensor:
 def reset_counts() -> None:
     """Set every kernel's launch count to 0, just before a main path."""
     from repro_torch.accel import waterfill as wf
+    from repro_torch.core import projection as pj
+    from repro_torch.core import vcluster_torch as vt
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.rwkv6 import kernel as rk
     from repro_torch.kernels.ssd import kernel as sk
 
     wf.launches = fk.launches = fk.launches_tc = rk.launches = 0
-    sk.launches = 0
+    sk.launches = pj.launches = 0
+    vt.calls.update(water_fill=0, project=0)
 
 
 def drop_wall(results: list[dict]) -> list[dict]:
@@ -737,6 +769,422 @@ def phase_kernel_timing(main_launches: int, wide_specs):
             "bound_by")},
     }
 
+
+# ---------------------------------------------------------------------------
+# The discrete-event path: the simulator, HFSP's virtual clusters on K1
+# and the projection kernel
+# ---------------------------------------------------------------------------
+#: f64 operations of the projection per lane its work touches, as the
+#: plain version writes it: per level step and part lane (live, weight >
+#: 0), the two masked sums' adds and the below-level test's multiply, add
+#: and compare; per event and part lane, the allocation's multiply and
+#: min; per event and live lane, the event time's divide, the least-time
+#: compare, the ageing's multiply, subtract and max, and the finish
+#: test's compare.  Finished and padding lanes do nothing.
+PROJ_OPS_PER_PART_LANE_LEVEL = 5
+PROJ_OPS_PER_PART_LANE_EVENT = 2
+PROJ_OPS_PER_LIVE_LANE_EVENT = 6
+#: The paper-fb disciplines of the discrete-event path: (name, spec
+#: overrides).
+DES_POLICIES = (
+    ("fifo", {"scheduler.policy": "fifo"}),
+    ("fair", {"scheduler.policy": "fair"}),
+    ("hfsp", {"scheduler.policy": "hfsp"}),
+    ("hfsp-kill", {"scheduler.policy": "hfsp",
+                   "scheduler.preemption": "kill"}),
+    ("srpt", {"scheduler.policy": "srpt"}),
+    ("las", {"scheduler.policy": "las"}),
+    ("psbs", {"scheduler.policy": "psbs"}),
+)
+#: The scheduler-overhead stress cell of benchmarks/bench_sched_overhead.py:
+#: fb_scaled, 5000 jobs on 1000 machines, hfsp, 20000 events.
+STRESS_JOBS, STRESS_MACHINES, STRESS_EVENTS = 5000, 1000, 20000
+
+
+def project_rows(rng, b, w, *, inf_frac=0.1, zero_w=0.1):
+    """Random projection rows (numpy, as the projection takes them): rem
+    with a share of infinite-size jobs, integer caps (some 0), weights
+    (some 0), all lanes present, slots, now and lam0 = 0."""
+    rem = rng.uniform(0.0, 400.0, (b, w))
+    rem[rng.random((b, w)) < inf_frac] = np.inf
+    caps = rng.integers(0, 15, (b, w)).astype(np.float64)
+    ws = rng.uniform(0.5, 2.0, (b, w))
+    ws[rng.random((b, w)) < zero_w] = 0.0
+    slots = rng.integers(1, max(2, w // 2), b).astype(np.float64)
+    return [rem, caps, ws, np.ones((b, w), bool), slots,
+            rng.uniform(0.0, 1e4, b), np.zeros(b)]
+
+
+def project_cases(seed: int = 2013):
+    """(name, rows, floor) cases of the projection kernel against its
+    plain version: B = 1 at widths 8, 256 and 1024, and at 5120 (run in
+    segments with host compaction, as ``vcluster_torch`` runs it);
+    batches with ``n_valid`` (a row with no present lane); a row of only
+    infinite-size jobs, a row of zero weights and a row resumed at a
+    level lam0 > 0; a width that is not a bucket width; two rows stopped
+    at a floor."""
+    rng = np.random.default_rng(seed)
+    cases = [(f"B1-W{w}", project_rows(rng, 1, w), 0) for w in (8, 256, 1024)]
+    cases.append(("B1-W5120-segmented", project_rows(rng, 1, 5120), None))
+    rows = project_rows(rng, 3, 200)
+    for i, nv in enumerate((200, 50, 0)):
+        rows[3][i, nv:] = False
+    cases.append(("B3-W200-n_valid", rows, 0))
+    cases.append(("B2-W256-two-phases", project_rows(rng, 2, 256), 0))
+    rows = project_rows(rng, 4, 64)
+    rows[0][0] = np.inf  # only infinite-size jobs
+    rows[2][1] = 0.0  # zero weights
+    rows[6][2] = 0.05  # resumed at a level
+    cases.append(("B4-W64-inf-zero-weights-lam0", rows, 0))
+    cases.append(("B4-W77-padded", project_rows(rng, 4, 77), 0))
+    cases.append(("B2-W1024-floor512", project_rows(rng, 2, 1024), 512))
+    return cases
+
+
+def project_tensors(rows, dev):
+    rem, caps, ws, present, slots, now, lam0 = rows
+    f = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
+    return [f(rem), f(caps), f(ws),
+            torch.as_tensor(present, dtype=torch.bool, device=dev),
+            f(slots), f(now), f(lam0)]
+
+
+def carry_equal(got, want) -> bool:
+    """The projection's carries ``(t, rem, fin, live, lam, n_live, run)``
+    are equal bit for bit."""
+    for g, w in zip(got, want):
+        if g.dtype == torch.float64:
+            g, w = bits(g), bits(w)
+        if g.shape != w.shape or not torch.equal(g, w):
+            return False
+    return True
+
+
+def project_segments(pj, args):
+    """A B = 1 row in segments through ``vcluster_torch.segments``, the
+    loop ``project_finish_times`` runs: each segment's kernel call
+    repeated and held bitwise against the plain version.  Returns the
+    segments' calls ``(args, floor)``."""
+    from repro_torch.core import vcluster_torch as vt
+
+    calls = []
+    for _, seg, floor, got in vt.segments(args):
+        again = pj.project_cuda(*seg, floor)
+        want = pj.project_reference(*seg, floor)
+        if not (carry_equal(got, want) and carry_equal(again, got)):
+            raise AssertionError(f"segment {len(calls)} at width "
+                                 f"{seg[0].shape[1]}: kernel != plain")
+        calls.append((seg, floor))
+    return calls
+
+
+def proj_bound(calls) -> tuple[float, str, int, int]:
+    """(bound_ms, bound_by, bytes, ops) over projection calls ``(args,
+    floor)``: each row's rem, caps, ws (8 bytes a lane), present (1) and
+    slots, now, lam0 read once, and rem, fin (8), live (1), t, lam, n_live
+    (8) and run (1) written once; the lanes that the level steps and
+    events these inputs need touch (counted by the plain version on the
+    CPU) at ``PROJ_OPS_PER_*`` operations each."""
+    from repro_torch.core import projection as pj
+
+    nbytes = ops = 0
+    for args, floor in calls:
+        cpu, w = pj._padded(*[a.cpu() for a in args], floor)
+        b = cpu[0].shape[0]
+        nbytes += b * (w * (25 + 17) + 24 + 25)
+        counts = {}
+        pj._project_rows(*cpu, counts=counts)
+        ops += (counts.get("level_lanes", 0) * PROJ_OPS_PER_PART_LANE_LEVEL
+                + counts.get("event_part_lanes", 0)
+                * PROJ_OPS_PER_PART_LANE_EVENT
+                + counts.get("event_live_lanes", 0)
+                * PROJ_OPS_PER_LIVE_LANE_EVENT)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F64_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, ops
+    return t_ops, "operations", nbytes, ops
+
+
+def des_counts() -> dict:
+    """K1's and the projection kernel's launches, and the calls the
+    virtual clusters made at the ``vcluster_torch`` entry points."""
+    from repro_torch.accel import waterfill as wf
+    from repro_torch.core import projection as pj
+    from repro_torch.core import vcluster_torch as vt
+
+    return {"k1_launches": wf.launches, "project_launches": pj.launches,
+            "water_fill_calls": vt.calls["water_fill"],
+            "project_calls": vt.calls["project"]}
+
+
+def check_des_counts(cell: str, c: dict) -> None:
+    if not (c["k1_launches"] > 0 and c["project_launches"] > 0):
+        raise AssertionError(f"{cell}: a kernel of the path did not launch: "
+                             f"{c}")
+    if c["k1_launches"] != c["water_fill_calls"] or \
+            c["project_launches"] != c["project_calls"]:
+        raise AssertionError(f"{cell}: launches != calls at the vcluster_torch "
+                             f"entry points: {c}")
+
+
+class TimedScheduler:
+    """A scheduler whose every ``schedule()`` pass is timed, as
+    benchmarks/bench_sched_overhead.py's ``_TimedScheduler`` does."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.pass_times: list[float] = []
+
+    def schedule(self, view, now):
+        t0 = time.perf_counter()
+        actions = self._inner.schedule(view, now)
+        self.pass_times.append(time.perf_counter() - t0)
+        return actions
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def stress_cell(backend: str) -> dict:
+    """The stress cell with ``backend``'s virtual clusters (on the card
+    for "torch"), stopped at its event budget as bench_sched_overhead's
+    ``run_cell`` stops it."""
+    from repro_torch.core import HFSPConfig, HFSPScheduler, Simulator
+    from repro_torch.core.simulator import EventLimitReached
+    from repro_torch.core.types import ClusterSpec
+    from repro_torch.workload import fb_scaled_dataset
+
+    jobs, _ = fb_scaled_dataset(seed=0, num_jobs=STRESS_JOBS,
+                                num_machines=STRESS_MACHINES)
+    cluster = ClusterSpec(num_machines=STRESS_MACHINES)
+    sch = TimedScheduler(HFSPScheduler(cluster, HFSPConfig(
+        vc_backend=backend, vc_device="cuda")))
+    sim = Simulator(cluster, sch, jobs)
+    t0 = time.perf_counter()
+    try:
+        sim.run(max_events=STRESS_EVENTS)
+    except EventLimitReached:
+        pass
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    times = sorted(sch.pass_times)
+    n = len(times)
+    return {
+        "completion": dict(sim.result.completion), "passes": sim.passes,
+        "events": sim.events_processed, "sim_t": sim._now, "wall_s": wall,
+        "events_per_s": sim.events_processed / wall,
+        "mean_pass_ms": 1e3 * sum(times) / n,
+        "p99_pass_ms": 1e3 * times[min(n - 1, int(0.99 * n))],
+    }
+
+
+def phase_des_main_path():
+    """paper-fb at full width under every discipline and the stress cell,
+    each through the port's discrete-event path with the torch virtual
+    clusters on the card, against the port's own numpy virtual clusters.
+    Returns the launches by cell."""
+    from repro_torch.scenarios.presets import paper_fb_base
+    from repro_torch.scenarios.runner import run_scenario
+
+    base = paper_fb_base()  # 100 jobs on 100 machines
+    specs = {name: base.override(**over) for name, over in DES_POLICIES}
+    reset_counts()
+    got, torch_s = {}, {}
+    for name, spec in specs.items():
+        t0 = time.perf_counter()
+        got[name] = run_scenario(
+            spec.override(**{"scheduler.vc_backend": "torch"}), device="cuda")
+        torch_s[name] = time.perf_counter() - t0
+    paper = des_counts()
+    check_des_counts("paper-fb", paper)
+    numpy_s = {}
+    for name, spec in specs.items():
+        t0 = time.perf_counter()
+        want = run_scenario(
+            spec.override(**{"scheduler.vc_backend": "numpy"}), device="cuda")
+        numpy_s[name] = time.perf_counter() - t0
+        g, w = ({k: v for k, v in r.items() if k not in ("spec", "wall_s")}
+                for r in (got[name], want))
+        if g != w:
+            raise AssertionError(f"paper-fb {name}: torch report != numpy: "
+                                 f"{[k for k in g if g[k] != w[k]]}")
+        if g["jobs_completed"] != 100 or g["jobs_lost"] != 0:
+            raise AssertionError(f"paper-fb {name}: incomplete {g}")
+    sojourn = {n: r["mean_sojourn_s"] for n, r in got.items()}
+    if not sojourn["hfsp"] < sojourn["fifo"]:
+        raise AssertionError(f"paper-fb: hfsp not below fifo: {sojourn}")
+    emit("des_paper_fb", jobs=100, machines=100, reports_equal=True,
+         mean_sojourn_s=sojourn,
+         passes={n: r["scheduler_passes"] for n, r in got.items()},
+         torch_wall_s=torch_s, numpy_wall_s=numpy_s, **paper)
+
+    # The stress cell, torch then numpy, each timed on its own.
+    reset_counts()
+    cuda_run = stress_cell("torch")
+    stress = des_counts()
+    check_des_counts("stress", stress)
+    numpy_run = stress_cell("numpy")
+    if cuda_run["completion"] != numpy_run["completion"] or \
+            cuda_run["passes"] != numpy_run["passes"]:
+        raise AssertionError("stress cell: torch and numpy runs differ")
+
+    emit("des_stress", jobs=STRESS_JOBS, machines=STRESS_MACHINES,
+         max_events=STRESS_EVENTS, completions=len(cuda_run["completion"]),
+         completions_equal=True, passes_equal=True,
+         **{f"torch_{k}": v for k, v in cuda_run.items() if k != "completion"},
+         **{f"numpy_{k}": v for k, v in numpy_run.items()
+            if k != "completion"}, **stress)
+    return {"paper-fb": paper, "stress": stress}
+
+
+def profiled_stress(stress: dict):
+    """The stress cell once more with the torch virtual clusters, under
+    the profiler: the device's busy share of the wall, and every
+    projection's padded inputs recorded (the kernel only reads them, and
+    nothing writes to them after the call).  The launches must equal the
+    timed run's ``stress``.  Returns the recorded calls ``(args,
+    floor)``."""
+    from repro_torch.core import projection as pj
+
+    captured = []
+    project = pj.project
+
+    def record(*args):
+        captured.append((list(args[:7]), args[7]))
+        return project(*args)
+
+    reset_counts()
+    pj.project = record
+    try:
+        profiled = profile_device(
+            lambda: stress_cell("torch"), 1,
+            {"project_share_of_device": "project_rows",
+             "k1_share_of_device": "waterfill"})
+    finally:
+        pj.project = project
+    if des_counts() != stress:
+        raise AssertionError(f"profiled stress run: launches {des_counts()} "
+                             f"!= {stress}")
+    emit("des_stress_profile", widest_projection=max(
+        a[0].shape[1] for a, _ in captured), **profiled)
+    return captured
+
+
+def wrapped_call_us(fn, reps: int) -> float:
+    """Host wall time of one call of a numpy-in, numpy-out ``fn``."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def phase_project_kernel_vs_plain(des_launches: dict):
+    from repro_torch.core import projection as pj
+    from repro_torch.core import vcluster as vc
+    from repro_torch.core import vcluster_torch as vt
+
+    dev = torch.device("cuda")
+    for name, rows, floor in project_cases():
+        args = project_tensors(rows, dev)
+        before = pj.launches
+        if floor is None:
+            segs = project_segments(pj, args)
+            emit("project_kernel_vs_plain", case=name, segments=len(segs),
+                 widths=[a[0].shape[1] for a, _ in segs], bitwise_equal=True)
+            continue
+        got = pj.project_cuda(*args, floor)
+        again = pj.project_cuda(*args, floor)
+        want = pj.project_reference(*args, floor)
+        torch.cuda.synchronize()
+        if pj.launches != before + 2:
+            raise AssertionError(f"{name}: launch counter did not advance by "
+                                 "one per call")
+        if not carry_equal(got, want):
+            fin = torch.isfinite(want[2])
+            err = (got[2][fin] - want[2][fin]).abs().max().item()
+            raise AssertionError(f"{name}: kernel != plain ({err})")
+        if not carry_equal(again, got):
+            raise AssertionError(f"{name}: kernel rerun not bitwise equal")
+        emit("project_kernel_vs_plain", case=name, shape=list(args[0].shape),
+             floor=floor, bitwise_equal=True, max_abs_err=0.0,
+             n_live=got[5].tolist(), run=got[6].tolist())
+
+    # Time at widths 16, 256 and 1024 (B = 1, random rows).
+    rng = np.random.default_rng(7)
+    by_width = {}
+    for w in (16, 256, 1024):
+        args = project_tensors(project_rows(rng, 1, w), dev)
+        ms = graph_ms(lambda: [pj.project_cuda(*args) for _ in range(10)]) / 10
+        plain_ms = cuda_ms(lambda: pj.project_reference(*args), 1)
+        bound_ms, bound_by, nbytes, ops = proj_bound([(args, 0)])
+        by_width[w] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+    emit("project_timing", by_width=by_width)
+
+    # One call through the numpy-in, numpy-out wrappers (host round trip
+    # included) against the numpy reference's, by job count.
+    wrapped = {}
+    for n in (16, 64, 256, 1024):
+        rem, caps, ws, _, slots, now, _ = project_rows(rng, 1, n)
+        rem, caps, ws = rem[0], caps[0], ws[0]
+        s, t0 = float(slots[0]), float(now[0])
+        reps = 200 if n <= 256 else 20
+        preps = 50 if n <= 64 else (5 if n <= 1024 else 1)
+        wrapped[n] = {
+            "water_fill_us": wrapped_call_us(
+                lambda: vt.water_fill(caps, ws, s, device="cuda"), reps),
+            "numpy_water_fill_us": wrapped_call_us(
+                lambda: vc._water_fill(caps, ws, s), reps),
+            "project_us": wrapped_call_us(
+                lambda: vt.project_finish_times(rem, caps, ws, s, t0,
+                                                device="cuda"), preps),
+            "numpy_project_us": wrapped_call_us(
+                lambda: vc._project_array(rem, caps, ws, s, t0), preps),
+        }
+    emit("vcluster_wrapped_calls", by_jobs=wrapped)
+    # On the stress cell's own calls: all of them graph-replayed, and an
+    # even subset beside the plain version and the bound.
+    calls = profiled_stress(des_launches["stress"])
+    all_ms = graph_ms(lambda: [pj.project_cuda(*a, f) for a, f in calls],
+                      replays=3) / len(calls)
+    subset = calls[::max(1, len(calls) // 24)]
+    ms = graph_ms(lambda: [pj.project_cuda(*a, f) for a, f in subset]) \
+        / len(subset)
+    plain_ms = cuda_ms(lambda: [pj.project_reference(*a, f)
+                                for a, f in subset], 1) / len(subset)
+    check = [(pj.project_cuda(*a, f), pj.project_reference(*a, f))
+             for a, f in subset]
+    if not all(carry_equal(g, w) for g, w in check):
+        raise AssertionError("stress cell's captured calls: kernel != plain")
+    bound_total, bound_by, nbytes, ops = proj_bound(subset)
+    widths = [a[0].shape[1] for a, _ in calls]
+    emit("project_timing", cell="stress", calls=len(calls),
+         widths={str(w): widths.count(w) for w in sorted(set(widths))},
+         ms_all_calls=all_ms, subset=len(subset), ms=ms, plain_ms=plain_ms,
+         bound_ms=bound_total / len(subset), bound_by=bound_by,
+         bytes_per_call=nbytes / len(subset), ops_per_call=ops / len(subset))
+
+    launches = sum(c["project_launches"] for c in des_launches.values())
+    return {
+        "name": "project",
+        "route": "cuda",
+        "source": "src/repro_torch/core/csrc/project.cu",
+        "replaces": "src/repro/core/vcluster_jax.py:155 (XLA lax.while_loop "
+                    "_project_kernel, not a Pallas kernel)",
+        "launches": launches,
+        "launches_by_path": {k: c["project_launches"]
+                             for k, c in des_launches.items()},
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_total / len(subset),
+        "bound_by": bound_by,
+        "library_ms": None,
+        "ms_all_stress_calls": all_ms,
+        "by_width": by_width,
+    }
 
 # ---------------------------------------------------------------------------
 # Flash attention (K2) and the dense serving path
@@ -1868,8 +2316,16 @@ def main() -> int:
     run_phase("kernel_vs_plain", phase_kernel_vs_plain)
     main_launches = run_phase("main_path", phase_main_path)
     wide_specs = run_phase("wide_rows", phase_wide_rows)
+    des_launches = run_phase("des_main_path", phase_des_main_path)
+    kp = run_phase("project_kernel_vs_plain", phase_project_kernel_vs_plain,
+                   des_launches)
     k1 = run_phase("kernel_timing", phase_kernel_timing, main_launches,
                    wide_specs)
+    # K1 runs on three main paths: the accel matrix and both cells of the
+    # discrete-event path (one call per virtual-cluster water-fill).
+    k1["launches_by_path"] = {"accel paper-64": main_launches, **{
+        f"des {cell}": c["k1_launches"] for cell, c in des_launches.items()}}
+    k1["launches"] = sum(k1["launches_by_path"].values())
     run_phase("flash_kernel_vs_plain", phase_flash_kernel_vs_plain, args.seed)
     cfg, params, serve_launches, per_prefill = run_phase(
         "serve_main_path", phase_serve_main_path, args.seed)
@@ -1908,7 +2364,7 @@ def main() -> int:
                               "zamba2-2.7b": zamba_launches["k2"]}
     k2["launches"] += zamba_launches["k2"]
     emit("done", total_s=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, kp]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -35,10 +35,11 @@ COMMON_FLAGS = (
 )
 
 #: kernel name -> (source, relative to the package; flags beyond
-#: :data:`COMMON_FLAGS`).  The water-fill keeps products out of FMAs so it
-#: agrees bitwise with its plain version.
+#: :data:`COMMON_FLAGS`).  The water-fill and the projection keep products
+#: out of FMAs so they agree bitwise with their plain versions.
 KERNELS: dict[str, tuple[str, tuple[str, ...]]] = {
     "waterfill": ("accel/csrc/waterfill.cu", ("-fmad=false",)),
+    "project": ("core/csrc/project.cu", ("-fmad=false",)),
     "flash_attention": ("kernels/flash_attention/csrc/flash_attention.cu", ()),
     "flash_attention_tc": (
         "kernels/flash_attention/csrc/flash_attention_tc.cu", ()),

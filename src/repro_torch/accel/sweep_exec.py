@@ -7,10 +7,10 @@ stack cells into one ``(B, J)`` batch, and run the whole matrix through
 :func:`repro_torch.accel.cell_step.run_packed`.
 
 :func:`accel_eligible` is the single authority on which specs the fluid
-cell represents.  Unlike the reference, :func:`run_sweep_accel` has no
-discrete-event simulator to fall back on yet: an ineligible cell raises,
-naming the cell and the reason.  The per-cell fallback returns with the
-simulator slice of the port (ROADMAP.md Queue 1 item 3).
+cell represents.  :func:`run_sweep_accel` runs every other cell through
+the discrete-event simulator, one cell at a time
+(:func:`repro_torch.scenarios.runner.run_scenario`, on the same device),
+as the reference does.
 """
 
 from __future__ import annotations
@@ -201,28 +201,38 @@ def run_sweep_accel(
     progress=None,
     device="cuda",
 ) -> dict[str, dict]:
-    """Expand a sweep and run every cell in batches on ``device``.
+    """Expand a sweep and run it on ``device``: eligible cells in batches,
+    the rest through the simulator per cell (``run_scenario``, whose
+    virtual cluster runs its kernels on the same device)."""
+    from repro_torch.scenarios.runner import run_scenario
 
-    Raises ``ValueError`` naming the first cell the fluid cell cannot
-    represent, with the :func:`accel_eligible` reason."""
+    resolve_device(device)
     cells = sweep.expand()
-    for cid, spec in cells:
-        ok, reason = accel_eligible(spec)
-        if not ok:
-            raise ValueError(
-                f"cell {cid!r} is not accel-eligible ({reason}); the "
-                "per-cell simulator fallback is not ported yet"
-            )
-    batch = run_cells_accel(
-        [s for _, s in cells],
-        impl=impl,
-        t_chunk=t_chunk,
-        max_chunks=max_chunks,
-        device=device,
-    )
+    eligible: list[tuple[str, ScenarioSpec]] = []
     results: dict[str, dict] = {}
-    for (cid, _), res in zip(cells, batch):
-        results[cid] = res
-        if progress:
-            progress(cid, res)
+    for cid, spec in cells:
+        ok, _reason = accel_eligible(spec)
+        if ok:
+            try:
+                synthesize_cell(spec)
+            except ValueError:
+                ok = False
+        if ok:
+            eligible.append((cid, spec))
+        else:
+            results[cid] = run_scenario(spec, device=device)
+            if progress:
+                progress(cid, results[cid])
+    if eligible:
+        batch = run_cells_accel(
+            [s for _, s in eligible],
+            impl=impl,
+            t_chunk=t_chunk,
+            max_chunks=max_chunks,
+            device=device,
+        )
+        for (cid, _), res in zip(eligible, batch):
+            results[cid] = res
+            if progress:
+                progress(cid, res)
     return results

@@ -87,10 +87,10 @@ def _tree_sum(x: torch.Tensor) -> torch.Tensor:
     pad = segs * slots * _WARP - w
     if pad:
         x = torch.cat([x, x.new_zeros(b, pad)], dim=1)
-    chunks = x.reshape(b, segs, slots, _WARP)
-    acc = torch.zeros(b, segs, _WARP, dtype=x.dtype, device=x.device)
-    for j in range(slots):
-        acc = acc + chunks[:, :, j, :]
+    chunks = x.reshape(b, segs, slots, _WARP).unbind(2)
+    acc = chunks[0]  # +0.0 + x is x
+    for j in range(1, slots):
+        acc = acc + chunks[j]
     part = _halve(acc)
     if segs == 1:
         return part[:, 0]
@@ -114,25 +114,23 @@ def _fill_rounds(caps, ws, slots, live) -> tuple[torch.Tensor, torch.Tensor]:
         go = (free > _EPS) & active.any(dim=-1)
         if not bool(go.any()):
             break
-        rounds += go.to(torch.int64)
+        rounds += go
         w_act = torch.where(active, w, 0.0)
         total_w = _tree_sum(w_act)
         w_ok = total_w > 0.0
-        denom = torch.where(w_ok, total_w, 1.0)
-        share = torch.where(active, free[:, None] * w_act / denom[:, None], 0.0)
+        # A lane that is not active has w_act +0.0, and a row that goes
+        # has free > 0, so its share is +0.0, as the kernel's; with w_ok
+        # False every share is +0.0, the kernel's grant.
+        share = free[:, None] * w_act / torch.where(w_ok, total_w, 1.0)[:, None]
         headroom = c - alloc
         capped = active & (share >= headroom - _EPS)
         cont = w_ok & capped.any(dim=-1)
         grant_capped = torch.where(capped, headroom, 0.0)
-        grant = torch.where(
-            cont[:, None], grant_capped,
-            torch.where(w_ok[:, None], share, 0.0),
-        )
-        alloc2 = alloc + grant
+        grant = torch.where(cont[:, None], grant_capped, share)
         free2 = torch.where(cont, free - _tree_sum(grant_capped), free)
-        active2 = cont[:, None] & active & ~capped
-        alloc = torch.where(go[:, None], alloc2, alloc)
-        active = torch.where(go[:, None], active2, active)
+        alloc = torch.where(go[:, None], alloc + grant, alloc)
+        active = torch.where(go[:, None], cont[:, None] & active & ~capped,
+                             active)
         free = torch.where(go, free2, free)
     return alloc, rounds
 

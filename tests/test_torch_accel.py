@@ -14,7 +14,8 @@ repro_torch.workload) against the JAX reference (repro.accel et al.).
   XLA's freedom to contract or reorder the rest of the step);
 * the fixed-shape contract: padding neutrality and rerun determinism,
   bitwise, for the port;
-* eligibility refusals, the named refusal of an ineligible sweep cell,
+* eligibility refusals, a mixed sweep whose ineligible cell runs through
+  the port's simulator (against the reference's ``run_sweep_accel``),
   the device rule (no quiet CPU fallback), and that no module of the
   port imports jax or repro.
 
@@ -240,6 +241,30 @@ def test_run_sweep_accel_on_cpu_answers_every_cell():
         assert res["mean_sojourn_s"] > 0.0
 
 
+#: tests/test_accel.py's bands of the fluid cell around the simulator:
+#: mean sojourn by policy (relative) and makespan.
+SOJOURN_TOL = {"fifo": 0.03, "srpt": 0.08, "hfsp": 0.10, "las": 0.18}
+MAKESPAN_TOL = 0.02
+
+
+def test_accel_cells_within_the_fidelity_bands_of_the_simulator():
+    """The port's fluid cells against the port's own discrete-event runs
+    of the same specs (seed 0, each accel policy), in the reference's
+    bands."""
+    from repro_torch.scenarios.runner import run_scenario
+
+    specs = [_quick(presets, 0, policy) for policy in POLICIES]
+    accel = sweep_exec.run_cells_accel(specs, t_chunk=128, device="cpu")
+    for spec, fluid in zip(specs, accel):
+        sim = run_scenario(spec, device="cpu")
+        policy = spec.scheduler.policy
+        assert fluid["jobs_completed"] == sim["jobs_completed"] == 30
+        assert fluid["mean_sojourn_s"] == pytest.approx(
+            sim["mean_sojourn_s"], rel=SOJOURN_TOL[policy]), policy
+        assert fluid["makespan_s"] == pytest.approx(
+            sim["makespan_s"], rel=MAKESPAN_TOL), policy
+
+
 # ---------------------------------------------------------------------------
 # Eligibility, device rule, import isolation
 # ---------------------------------------------------------------------------
@@ -259,16 +284,35 @@ def test_eligibility_refusals_carry_reasons(axis, value):
     assert not ok and reason
 
 
-def test_run_sweep_accel_names_the_ineligible_cell():
+def test_run_sweep_accel_runs_the_ineligible_cell_through_the_simulator():
+    """A mixed fifo/fair sweep: fifo in the accel batch, fair (not
+    accel-eligible) through the port's simulator on the same device;
+    both equal the reference's ``run_sweep_accel`` apart from the wall
+    time (the accel cell's floats at ``rel=1e-9``, as above)."""
+    from repro.scenarios.spec import SweepSpec as RefSweepSpec
     from repro_torch.scenarios.spec import SweepSpec
 
-    sweep = SweepSpec(
-        name="mixed",
-        base=presets.paper_fb_base(seed=0).quick(),
-        grids=(SweepSpec.grid(**{"scheduler.policy": ("fifo", "fair")}),),
-    )
-    with pytest.raises(ValueError, match=r"scheduler\.policy=fair.*'fair'"):
-        sweep_exec.run_sweep_accel(sweep, device="cpu")
+    grid = {"scheduler.policy": ("fifo", "fair")}
+    got = sweep_exec.run_sweep_accel(SweepSpec(
+        name="mixed", base=presets.paper_fb_base(seed=0).quick(),
+        grids=(SweepSpec.grid(**grid),)), t_chunk=128, device="cpu")
+    want = ref_exec.run_sweep_accel(RefSweepSpec(
+        name="mixed", base=ref_presets.paper_fb_base(seed=0).quick(),
+        grids=(RefSweepSpec.grid(**grid),)), t_chunk=128)
+    assert sorted(got) == sorted(want) == [
+        "scheduler.policy=fair", "scheduler.policy=fifo"]
+    for res in (*got.values(), *want.values()):
+        res.pop("wall_s")
+    fair, ref_fair = got["scheduler.policy=fair"], want["scheduler.policy=fair"]
+    assert "compute" not in fair and fair["jobs_completed"] == 30
+    assert fair == ref_fair
+    fifo, ref_fifo = got["scheduler.policy=fifo"], want["scheduler.policy=fifo"]
+    assert fifo["compute"] == "accel" and fifo.keys() == ref_fifo.keys()
+    for key, value in fifo.items():
+        if isinstance(value, float):
+            assert value == pytest.approx(ref_fifo[key], rel=1e-9), key
+        else:
+            assert value == ref_fifo[key], key
 
 
 def test_cuda_impl_on_cpu_tensors_raises():
@@ -296,10 +340,17 @@ def test_port_imports_neither_jax_nor_repro():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
+        "print(' '.join(n for n in sys.modules if n.startswith('repro_torch')))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 14
+    seen = set(proc.stdout.split())
+    assert len(seen) >= 30
+    # The discrete-event path's modules are among them.
+    assert {f"repro_torch.core.{m}" for m in (
+        "vcluster_torch", "projection", "vcluster", "types", "estimator",
+        "scheduler", "disciplines", "fifo", "fair", "hfsp", "faults",
+        "simulator", "metrics")} | {f"repro_torch.scenarios.{m}" for m in (
+            "report", "runner", "trace")} <= seen

@@ -52,10 +52,21 @@ that has only the port's dependencies:
   128 and 1024, and rows whose guard is false at entry (no live lane, no
   free slot); bitwise reruns and one launch per call or pair (the plain
   version is held to the reference on the CPU in
-  tests/test_torch_waterfill.py).
+  tests/test_torch_waterfill.py);
+* the projection kernel (the processor-sharing finish-time projection of
+  the discrete-event path's virtual cluster) against its plain version,
+  bitwise, on ``chip_smoke.py``'s cases (``project_cases``: B = 1 at
+  widths 8, 256, 1024 and 5120, the last in segments with host
+  compaction; batches with ``n_valid``; rows of only infinite-size jobs,
+  of zero weights and resumed at a level; a width that is not a bucket
+  width; rows stopped at a floor), with bitwise reruns and one launch per
+  call (the plain version is held to the reference on the CPU in
+  tests/test_torch_vcluster.py).
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -451,3 +462,40 @@ def test_waterfill_kernel_matches_plain_version_on_card(cuda, b, width, guard):
         assert torch.equal(bits(a), bits(g))
     if guard == "no-live":
         assert not got[0][0].any()
+
+
+# ---------------------------------------------------------------------------
+# The projection kernel
+# ---------------------------------------------------------------------------
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports only numpy and torch)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+SMOKE = _chip_smoke()
+PROJECT_CASES = {name: (rows, floor)
+                 for name, rows, floor in SMOKE.project_cases()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(PROJECT_CASES))
+def test_projection_kernel_matches_plain_version_on_card(cuda, name):
+    from repro_torch.core import projection as pj
+
+    rows, floor = PROJECT_CASES[name]
+    args = SMOKE.project_tensors(rows, cuda)
+    if floor is None:  # in segments, each checked inside
+        assert len(SMOKE.project_segments(pj, args)) >= 3
+        return
+    before = pj.launches
+    got = pj.project_cuda(*args, floor)
+    again = pj.project_cuda(*args, floor)
+    want = pj.project_reference(*args, floor)
+    torch.cuda.synchronize()
+    assert pj.launches == before + 2
+    assert SMOKE.carry_equal(got, want)
+    assert SMOKE.carry_equal(again, got)
