@@ -48,19 +48,42 @@ script exits non-zero:
    widths 16, 256 and 1024 beside its bound (the operations on the lanes
    the work touches) and the plain version; one call of
    ``vcluster_torch.water_fill`` and ``project_finish_times`` (numpy in
-   and out, the host round trip included) against the numpy loops' by
-   job count; then the stress cell once more under the profiler (the
+   and out, the host round trip included) against the numpy loops' at 4
+   to 8192 live jobs (``vcluster_wrapped_calls``), with the "auto"
+   latch's threshold each kernel's numbers give beside the one in
+   ``core/vcluster.py``; then the stress cell once more under the profiler (the
    device's busy share of the wall, the same launches as the timed run)
    with its projection calls recorded, and the kernel timed on them
    (graph-replayed) beside its bound and the plain version;
-7. K1 timing on inputs captured from the accel path (the hfsp batch's
+7. the scenario engine's entry points (``scenarios_cli``), at paper
+   scale (100 FB jobs on 100 machines, nothing cut): (a)
+   ``run_worker(paper-estimation-error, compute="accel",
+   accel_batch=32)`` into a sqlite store runs its 30 hfsp cells in one
+   batch (K1 launches by counter = the batch's steps, 512 a chunk) and
+   its fair cell in a spawned attempt, each batch report equal (wall
+   aside) to a direct ``run_cells_accel`` of the same specs; (b) ``python
+   -m repro_torch.scenarios run paper-estimation-error-disciplines
+   --workers 2`` with ``REPRO_VC_BACKEND=torch``, alone on the host,
+   exits 0; its spawned attempts, summed (each writes its counters
+   through the sweep hook's ``launch_counts``), launch K1 and the
+   projection kernel > 0 times and exactly as often as their virtual
+   clusters call them; its 10 reports equal an inline ``run_sweep`` with
+   numpy virtual clusters, and one hfsp cell of it in-process launches
+   as its virtual clusters call; (c) ``sweep-status`` reports both stores
+   converged, nothing quarantined; (d) under "auto", a
+   paper-cluster-size cell with up to 37 live jobs a phase (10 machines)
+   runs the projection kernel and no K1, and paper-fb's hfsp cell (at
+   most 14) launches nothing, each report equal to numpy's and each
+   timed against numpy in turns after an untimed run (numpy, auto,
+   auto, numpy, numpy, auto);
+8. K1 timing on inputs captured from the accel path (the hfsp batch's
    first 256 steps at 16 x 128 and the wide cells' at 4 x 1024), as
    pairs and as single-phase calls, graph-replayed, beside the bound of
    the work, the host time per step and the floor any launch pays (a
    one-element ``add_``); the main path's hfsp batch once more under the
    profiler (one K1 launch per step by name), the kernels of one hfsp step
    counted in a CUDA graph, and a short profile of the hfsp step;
-8. the flash attention kernel (K2) against its plain PyTorch version on
+9. the flash attention kernel (K2) against its plain PyTorch version on
    the card, f32 (the CUDA-core kernel ``flash_fwd``, atol = rtol = 2e-5)
    and bf16 (the tensor-core kernel ``flash_tc``, both atol 2e-2 and
    atol 4e-3 with rtol 1.6e-2), on the shapes of tests/test_kernels.py,
@@ -71,24 +94,24 @@ script exits non-zero:
    shapes, outputs of deliberately wrong attention (a kv tile dropped,
    the diagonal key dropped past row 1024, the last kv tile dropped for
    the last 128 rows of one head) must fail the bf16 tolerance;
-9. the serving path: olmo-1b at its published widths (16 layers, d_model
+10. the serving path: olmo-1b at its published widths (16 layers, d_model
    2048, vocab 50304; random weights from ``--seed``) through
    ``make_prefill_step(use_flash=True, last_token_only=True)`` on 4 x 4096
    prompt tokens in bf16, cold and warm (16 launches of the tensor-core
    K2 per prefill and none of the CUDA-core one, by counter and by name in
    the profile), a profile of one prefill, then ``greedy_generate`` for 4
    requests of 64 prompt and 32 new tokens;
-10. serving cross-checks in f32 on the same weights: prefill logits with K2
+11. serving cross-checks in f32 on the same weights: prefill logits with K2
    (its f32 route) against the plain version (atol 1e-3), and the last
    prompt position's prefill logits against the decode-cache route's (atol
    1e-3); then in bf16 on 1 x 1024: prefill logits with the tensor-core K2
    against the same prefill through K2's plain version, within 2e-2 of
    max |logit|;
-11. K2 timing at the olmo shape beside its bound, the plain version and
+12. K2 timing at the olmo shape beside its bound, the plain version and
    ``F.scaled_dot_product_attention`` (timed only, never on the path): its
    achieved TFLOP/s, share of the bound and ratio to SDPA, and the f32
    route's time on the same inputs in f32;
-12. the RWKV6 WKV scan kernel (K3: ``rwkv6_scan``, one block per chunk,
+13. the RWKV6 WKV scan kernel (K3: ``rwkv6_scan``, one block per chunk,
     head and batch row, the entering state handed from block to block
     through a two-slot ring per head) against its plain PyTorch version on
     the card, f32 output and state at atol = rtol = 1e-4 and bf16 r/k/v
@@ -101,7 +124,7 @@ script exits non-zero:
     chunk's entering state zeroed, one channel of the state missing a
     chunk's decay, a chunk's bonus diagonal dropped) must fail the output
     tolerance;
-13. the rwkv6 serving path, after olmo-1b's weights are freed: rwkv6-1.6b
+14. the rwkv6 serving path, after olmo-1b's weights are freed: rwkv6-1.6b
     at its published widths (24 layers, d_model 2048, 32 heads of 64,
     d_ff 7168, vocab 65536, untied head; 1,583,941,632 parameters, random
     from ``--seed``) through ``make_prefill_step(use_scan_kernel=True,
@@ -110,15 +133,15 @@ script exits non-zero:
     name in the profile, and the replaced ``rwkv6_fwd`` none), a profile
     of one prefill, then ``greedy_generate`` for 4 requests of 64 prompt
     and 32 new tokens;
-14. rwkv6 cross-checks in f32 on the same weights: 1 x 1024 prefill
+15. rwkv6 cross-checks in f32 on the same weights: 1 x 1024 prefill
     logits with K3 against the plain version and the ``rwkv_scan_chunked``
     route, and the last prompt position's prefill logits against the
     decode route's on 200 tokens (atol 1e-3 each);
-15. K3 timing at the rwkv6 shape beside its bound (and its share of it)
+16. K3 timing at the rwkv6 shape beside its bound (and its share of it)
     and the plain version (no single PyTorch call computes the scan, so no
     library time), in bf16 and with f32 inputs, each against the bound of
     its own input bytes;
-16. the Mamba2 SSD scan (K4: two kernels, ``ssd_cb`` and ``ssd_scan``,
+17. the Mamba2 SSD scan (K4: two kernels, ``ssd_cb`` and ``ssd_scan``,
     one launch count) against its plain PyTorch version on
     the card, f32 y and state at atol = rtol = 1e-4 and bf16 x/B/C (f32
     dt/a) at atol = rtol = 2e-2, on the shapes of tests/test_kernels.py,
@@ -128,7 +151,7 @@ script exits non-zero:
     zamba2-2.7b's shape, three faulty outputs (a late chunk's entering
     state zeroed, one p-slice missing a chunk's decay, a chunk's diagonal
     scores dropped) must fail the y tolerance;
-17. the zamba2 serving path, after rwkv6's weights are freed: zamba2-2.7b
+18. the zamba2 serving path, after rwkv6's weights are freed: zamba2-2.7b
     at its published widths (54 mamba2 layers, d_model 2560, ssm_state 64,
     heads of 64; one shared attention+MLP block of 32 heads of 80 and
     d_ff 10240 after every 6th layer; vocab 32000, tied embeddings;
@@ -140,23 +163,25 @@ script exits non-zero:
     and none of the CUDA-core K2), profiles of a prefill and
     a decode step, then ``greedy_generate`` for 4 requests of 64 prompt
     and 32 new tokens;
-18. zamba2 cross-checks in f32 on the same weights: 1 x 1024 prefill
+19. zamba2 cross-checks in f32 on the same weights: 1 x 1024 prefill
     logits with K4 and K2 against K4's plain version, the
     ``ssd_scan_chunked`` route and K2's plain version, and the last prompt
     position's prefill logits against the decode route's on 200 tokens
     (atol 1e-3 each);
-19. K4 timing at the zamba2 shape beside its bound and the plain version
+20. K4 timing at the zamba2 shape beside its bound and the plain version
     (no single PyTorch call computes the scan, so no library time), in
     bf16 and with f32 inputs, and each of its kernels' profiled time per
     launch, and
     K2 at zamba2's head dim 80 beside its bound, its plain version and
     ``F.scaled_dot_product_attention``, with the same fields as phase 11;
-20. the ``{"kernels": [...]}`` line (K1, K2, K3, K4 and the projection
+21. the ``{"kernels": [...]}`` line (K1, K2, K3, K4 and the projection
     kernel), the card's name and power limit, and the final ``{"ok":
     true, ...}`` line.
 
 Each main path (the accel matrix, the wide rows, the discrete-event
-path's two cells, olmo-1b serving, rwkv6 serving, zamba2 serving) runs
+path's two cells, the scenario worker's batch, the CLI sweep's hfsp
+cell, the "auto" latch's cell, olmo-1b serving, rwkv6 serving, zamba2
+serving) runs
 with every kernel's launch count set to 0 just before it and read just
 after.
 """
@@ -1080,10 +1105,62 @@ def wrapped_call_us(fn, reps: int) -> float:
     return (time.perf_counter() - t0) / reps * 1e6
 
 
-def phase_project_kernel_vs_plain(des_launches: dict):
-    from repro_torch.core import projection as pj
+#: Live-job counts at which the wrapped calls are timed against numpy's.
+WRAPPED_JOBS = (4, 8, 16, 64, 256, 1024, 2048, 4096, 8192)
+
+
+def crossover(wrapped: dict, ours: str, numpy_key: str):
+    """The least job count from which the wrapped call beats numpy's at
+    every larger count measured; None if numpy wins at the largest."""
+    at = None
+    for n in sorted(wrapped, reverse=True):
+        if wrapped[n][ours] >= wrapped[n][numpy_key]:
+            break
+        at = n
+    return at
+
+
+def phase_vcluster_wrapped_calls():
+    """One call of ``vcluster_torch.water_fill`` and
+    ``project_finish_times`` (numpy in and out, the host round trip
+    included) against the numpy loops', by job count, and the "auto"
+    latch's threshold each kernel's numbers give beside the one in
+    ``core/vcluster.py``."""
     from repro_torch.core import vcluster as vc
     from repro_torch.core import vcluster_torch as vt
+
+    rng = np.random.default_rng(11)
+    wrapped = {}
+    for n in WRAPPED_JOBS:
+        rem, caps, ws, _, slots, now, _ = project_rows(rng, 1, n)
+        rem, caps, ws = rem[0], caps[0], ws[0]
+        s, t0 = float(slots[0]), float(now[0])
+        reps = 200 if n <= 256 else 20
+        preps = 50 if n <= 64 else (5 if n <= 1024 else 1)
+        wrapped[n] = {
+            "water_fill_us": wrapped_call_us(
+                lambda: vt.water_fill(caps, ws, s, device="cuda"), reps),
+            "numpy_water_fill_us": wrapped_call_us(
+                lambda: vc._water_fill(caps, ws, s), reps),
+            "project_us": wrapped_call_us(
+                lambda: vt.project_finish_times(rem, caps, ws, s, t0,
+                                                device="cuda"), preps),
+            "numpy_project_us": wrapped_call_us(
+                lambda: vc._project_array(rem, caps, ws, s, t0), preps),
+        }
+    measured = {
+        "fill": crossover(wrapped, "water_fill_us", "numpy_water_fill_us"),
+        "project": crossover(wrapped, "project_us", "numpy_project_us"),
+    }
+    in_code = {"fill": vc.AUTO_FILL_THRESHOLD,
+               "project": vc.AUTO_PROJECT_THRESHOLD}
+    emit("vcluster_wrapped_calls", by_jobs=wrapped,
+         thresholds_this_run=measured, thresholds_in_code=in_code)
+    return measured
+
+
+def phase_project_kernel_vs_plain(des_launches: dict):
+    from repro_torch.core import projection as pj
 
     dev = torch.device("cuda")
     for name, rows, floor in project_cases():
@@ -1123,27 +1200,7 @@ def phase_project_kernel_vs_plain(des_launches: dict):
                        "bound_by": bound_by, "bytes": nbytes, "ops": ops}
     emit("project_timing", by_width=by_width)
 
-    # One call through the numpy-in, numpy-out wrappers (host round trip
-    # included) against the numpy reference's, by job count.
-    wrapped = {}
-    for n in (16, 64, 256, 1024):
-        rem, caps, ws, _, slots, now, _ = project_rows(rng, 1, n)
-        rem, caps, ws = rem[0], caps[0], ws[0]
-        s, t0 = float(slots[0]), float(now[0])
-        reps = 200 if n <= 256 else 20
-        preps = 50 if n <= 64 else (5 if n <= 1024 else 1)
-        wrapped[n] = {
-            "water_fill_us": wrapped_call_us(
-                lambda: vt.water_fill(caps, ws, s, device="cuda"), reps),
-            "numpy_water_fill_us": wrapped_call_us(
-                lambda: vc._water_fill(caps, ws, s), reps),
-            "project_us": wrapped_call_us(
-                lambda: vt.project_finish_times(rem, caps, ws, s, t0,
-                                                device="cuda"), preps),
-            "numpy_project_us": wrapped_call_us(
-                lambda: vc._project_array(rem, caps, ws, s, t0), preps),
-        }
-    emit("vcluster_wrapped_calls", by_jobs=wrapped)
+    phase_vcluster_wrapped_calls()
     # On the stress cell's own calls: all of them graph-replayed, and an
     # even subset beside the plain version and the bound.
     calls = profiled_stress(des_launches["stress"])
@@ -1185,6 +1242,256 @@ def phase_project_kernel_vs_plain(des_launches: dict):
         "ms_all_stress_calls": all_ms,
         "by_width": by_width,
     }
+
+# ---------------------------------------------------------------------------
+# The scenario engine's entry points
+# ---------------------------------------------------------------------------
+#: A cell of ``paper-cluster-size`` with more live jobs a phase than the
+#: "auto" latch's projection threshold: 100 FB jobs on 10 machines.
+LATCH_CELL = ("paper-cluster-size",
+              "cluster.num_machines=10,scheduler.policy=hfsp")
+#: The order of the timed runs of each latch cell, after an untimed one.
+LATCH_ORDER = ("numpy", "auto", "auto", "numpy", "numpy", "auto")
+
+
+@contextlib.contextmanager
+def vc_backend_env(backend: str):
+    """``REPRO_VC_BACKEND`` set to ``backend`` inside the block."""
+    import os
+
+    old = os.environ.get("REPRO_VC_BACKEND")
+    os.environ["REPRO_VC_BACKEND"] = backend
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["REPRO_VC_BACKEND"]
+        else:
+            os.environ["REPRO_VC_BACKEND"] = old
+
+
+@contextlib.contextmanager
+def cli_process(*args: str, env: dict | None = None):
+    """``python -m repro_torch.scenarios *args`` started from the
+    checkout's root, as users run it, in a process group of its own:
+    yields (process, start time) and, on leaving the block, kills the
+    group (the CLI and its spawned workers) if it still runs."""
+    import os
+    import signal
+
+    full_env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), **(env or {})}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.scenarios", *args], cwd=ROOT,
+        env=full_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        yield proc, time.perf_counter()
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+
+
+def finish_cli(started, timeout: float = 300.0):
+    """Wait for a ``cli_process``; returns (seconds, stdout), raising on a
+    non-zero exit."""
+    proc, t0 = started
+    out, err = proc.communicate(timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{proc.args[3:]} exited {proc.returncode}:"
+                             f"\n{out[-2000:]}\n{err[-4000:]}")
+    return seconds, out
+
+
+def stored_reports(path) -> dict:
+    """{cell id: report} of a sweep store."""
+    from repro_torch.scenarios.store import open_store
+
+    return {cid: r for (cid, _), r in open_store(path).load().items()}
+
+
+def json_equal(a, b) -> bool:
+    """Equal once both went through JSON (a store holds JSON)."""
+    return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+
+
+def phase_scenarios_cli():
+    """The scenario engine's entry points at paper scale on the card (see
+    the module docstring).  Returns the launches by path."""
+    import tempfile
+
+    from repro_torch.accel import run_cells_accel
+    from repro_torch.accel import waterfill as wf
+    from repro_torch.scenarios.presets import get_preset
+    from repro_torch.scenarios.runner import run_scenario
+    from repro_torch.scenarios.sweep import run_sweep
+    from repro_torch.scenarios.worker import run_worker
+
+    tmp = Path(tempfile.mkdtemp(prefix="scenarios_cli-"))
+
+    # (a) One worker with the accel executor: the 30 hfsp cells of
+    # paper-estimation-error in one batch, its fair cell spawned.
+    sweep = get_preset("paper-estimation-error")
+    specs = dict(sweep.expand())
+    worker_store = tmp / "worker.sqlite"
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = run_worker(sweep, worker_store, compute="accel",
+                         accel_batch=32, device="cuda")
+    torch.cuda.synchronize()
+    worker_s = time.perf_counter() - t0
+    k1_worker = wf.launches
+    fair = "scheduler.policy=fair"
+    hfsp = [cid for cid in specs if cid != fair]
+    if summary["stalled"] or sorted(summary["computed"]) != sorted(specs):
+        raise AssertionError(f"worker did not converge: {summary}")
+    if (summary["accel_batches"], summary["accel_cells"],
+            list(summary["accel_fallbacks"])) != (1, 30, [fair]):
+        raise AssertionError(f"not one batch of 30 hfsp cells: {summary}")
+    stored = stored_reports(worker_store)
+    steps = [stored[cid]["accel_steps"] for cid in hfsp]
+    steps_run = -(-max(steps) // 512) * 512  # whole chunks of 512 steps
+    if not 0 < k1_worker == steps_run:
+        raise AssertionError(f"worker batch: {k1_worker} K1 launches, want "
+                             f"one per hfsp step ({steps_run})")
+    batch_s = sum(stored[cid]["wall_s"] for cid in hfsp)
+    t0 = time.perf_counter()
+    direct = run_cells_accel([specs[cid] for cid in hfsp], device="cuda")
+    direct_s = time.perf_counter() - t0
+    for cid, want in zip(hfsp, drop_wall(direct)):
+        if not json_equal(drop_wall([stored[cid]]), [want]):
+            raise AssertionError(f"{cid}: worker's accel report != a direct "
+                                 "run_cells_accel")
+    if stored[fair].get("compute") or stored[fair]["jobs_completed"] != 100:
+        raise AssertionError(f"fair cell: {stored[fair]}")
+    emit("scenarios_worker_accel", preset=sweep.name, cells=len(specs),
+         accel_cells=30, fallbacks=summary["accel_fallbacks"],
+         worker_s=worker_s, batch_s=batch_s, batch_cells_per_s=30 / batch_s,
+         direct_run_cells_accel_s=direct_s, k1_launches=k1_worker,
+         max_accel_steps=max(steps), reports_equal_direct=True)
+
+    # (b) As users run it, alone on the host: the CLI, two spawned
+    # workers, the virtual clusters on the card.  Each attempt writes its
+    # kernels' launches and the virtual clusters' calls (the hook's
+    # ``launch_counts``), its counters dying with it.
+    name = "paper-estimation-error-disciplines"
+    run_store = tmp / "run.jsonl"
+    witness = tmp / "cli_launches"
+    witness.mkdir()
+    hook = tmp / "hook.json"
+    hook.write_text(json.dumps({"launch_counts": True,
+                                "state_dir": str(witness)}))
+    with cli_process("run", name, "--workers", "2", "--store",
+                     str(run_store),
+                     env={"REPRO_VC_BACKEND": "torch",
+                          "_REPRO_SWEEP_TEST_HOOK": str(hook)}) as started:
+        cli_s, out = finish_cli(started)
+    per_attempt = [json.loads(f.read_text())
+                   for f in sorted(witness.glob("launches-*.json"))]
+    cli_counts = {k: sum(c[k] for c in per_attempt)
+                  for k in ("k1_launches", "project_launches",
+                            "water_fill_calls", "project_calls")}
+    check_des_counts(f"{name} (CLI, spawned attempts)", cli_counts)
+    # A straggler's racing attempt may count too: every cell once or more.
+    if {c["cell_id"] for c in per_attempt} != \
+            {cid for cid, _ in get_preset(name).expand()}:
+        raise AssertionError(f"{name}: a cell has no counted attempt: "
+                             f"{[c['cell_id'] for c in per_attempt]}")
+
+    # The CLI's reference: an inline sweep with numpy virtual clusters.
+    with vc_backend_env("numpy"):
+        t0 = time.perf_counter()
+        want = run_sweep(get_preset(name), workers=0, device="cuda")
+        numpy_inline_s = time.perf_counter() - t0
+    got = stored_reports(run_store)
+    if set(got) != set(want) or len(want) != 10:
+        raise AssertionError(f"{name}: cells {sorted(got)} != {sorted(want)}")
+    for c in want:
+        if not json_equal(drop_wall([got[c]]), drop_wall([want[c]])):
+            raise AssertionError(f"{name} {c}: spawned torch report != "
+                                 "inline numpy report")
+    # One hfsp cell of it in-process: the kernels' launches equal the
+    # virtual clusters' calls.
+    cell = "scheduler.error_alpha=0.5,scheduler.policy=hfsp"
+    reset_counts()
+    with vc_backend_env("torch"):
+        report = run_scenario(dict(get_preset(name).expand())[cell],
+                              device="cuda")
+    hfsp_cell = des_counts()
+    check_des_counts(f"{name} {cell}", hfsp_cell)
+    if not json_equal(drop_wall([report]), drop_wall([want[cell]])):
+        raise AssertionError(f"{cell}: in-process report != numpy's")
+    emit("scenarios_cli_run", preset=name, cells=len(want), workers=2,
+         cli_wall_s=cli_s, numpy_inline_s=numpy_inline_s,
+         reports_equal=True, printed_tail=out.splitlines()[-1],
+         cli_attempts=len(per_attempt), cli_counts=cli_counts,
+         hfsp_cell=cell, **hfsp_cell)
+
+    # (d) The "auto" latch on the card, timed against numpy in turns: a
+    # cell whose phases hold more live jobs than the projection's
+    # threshold runs the projection kernel and no K1; paper-fb's hfsp
+    # cell stays below it and launches nothing.  Reports equal numpy's.
+    latch_cells = {}
+    for preset, cid, latches in (LATCH_CELL + (True,),
+                                 ("paper-fb", "scheduler.policy=hfsp",
+                                  False)):
+        spec = dict(get_preset(preset).expand())[cid]
+        walls = {"auto": [], "numpy": []}
+        reports, counts = {}, []
+        with vc_backend_env("numpy"):
+            run_scenario(spec, device="cuda")  # warm: untimed
+        for backend in LATCH_ORDER:
+            reset_counts()
+            with vc_backend_env(backend):
+                t0 = time.perf_counter()
+                reports[backend] = run_scenario(spec, device="cuda")
+                torch.cuda.synchronize()
+                walls[backend].append(time.perf_counter() - t0)
+            if backend == "auto":
+                counts.append(des_counts())
+        c = counts[0]
+        if latches:
+            ok = 0 < c["project_launches"] == c["project_calls"] \
+                and c["k1_launches"] == c["water_fill_calls"] == 0
+        else:
+            ok = not any(c.values())
+        if not ok or any(other != c for other in counts):
+            raise AssertionError(f"auto latch on {preset} {cid}: {counts}")
+        if not json_equal(drop_wall([reports["auto"]]),
+                          drop_wall([reports["numpy"]])):
+            raise AssertionError(f"auto on {preset} {cid}: report != numpy's")
+        latch_cells[f"{preset} {cid}"] = {
+            "auto_s": walls["auto"], "numpy_s": walls["numpy"],
+            "auto_over_numpy": sum(walls["auto"]) / sum(walls["numpy"]),
+            "latched": latches, **c}
+    emit("scenarios_auto_latch", order=" ".join(LATCH_ORDER),
+         reports_equal=True, cells=latch_cells)
+    latch = latch_cells[" ".join(LATCH_CELL)]
+
+    # (c) The coordinator's view of both stores.
+    status = {}
+    with cli_process("sweep-status", sweep.name, "--store",
+                     str(worker_store), "--json-out") as first, \
+            cli_process("sweep-status", name, "--store", str(run_store),
+                        "--json-out") as second:
+        for preset, started in ((sweep.name, first), (name, second)):
+            st = json.loads(finish_cli(started)[1])
+            if not st["converged"] or st["quarantined"] or \
+                    len(st["done"]) != st["cells"]:
+                raise AssertionError(f"sweep-status {preset}: {st}")
+            status[preset] = {k: st[k] for k in ("cells", "stats")}
+    emit("scenarios_sweep_status", all_done=True, quarantined=0, **status)
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"k1": {"scenarios worker": k1_worker,
+                   "scenarios CLI": cli_counts["k1_launches"],
+                   "scenarios hfsp cell": hfsp_cell["k1_launches"]},
+            "project": {"scenarios CLI": cli_counts["project_launches"],
+                        "scenarios hfsp cell": hfsp_cell["project_launches"],
+                        "scenarios auto latch": latch["project_launches"]}}
+
 
 # ---------------------------------------------------------------------------
 # Flash attention (K2) and the dense serving path
@@ -2319,12 +2626,17 @@ def main() -> int:
     des_launches = run_phase("des_main_path", phase_des_main_path)
     kp = run_phase("project_kernel_vs_plain", phase_project_kernel_vs_plain,
                    des_launches)
+    scenario_launches = run_phase("scenarios_cli", phase_scenarios_cli)
+    kp["launches_by_path"].update(scenario_launches["project"])
+    kp["launches"] = sum(kp["launches_by_path"].values())
     k1 = run_phase("kernel_timing", phase_kernel_timing, main_launches,
                    wide_specs)
-    # K1 runs on three main paths: the accel matrix and both cells of the
-    # discrete-event path (one call per virtual-cluster water-fill).
+    # K1 runs on the accel matrix, both cells of the discrete-event path
+    # (one call per virtual-cluster water-fill) and the scenario entry
+    # points (the worker's accel batch, one hfsp cell of the CLI's sweep).
     k1["launches_by_path"] = {"accel paper-64": main_launches, **{
-        f"des {cell}": c["k1_launches"] for cell, c in des_launches.items()}}
+        f"des {cell}": c["k1_launches"] for cell, c in des_launches.items()},
+        **scenario_launches["k1"]}
     k1["launches"] = sum(k1["launches_by_path"].values())
     run_phase("flash_kernel_vs_plain", phase_flash_kernel_vs_plain, args.seed)
     cfg, params, serve_launches, per_prefill = run_phase(

@@ -24,6 +24,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from repro_torch import KernelError
+
 PKG = Path(__file__).resolve().parent
 BUILD_DIR = PKG.parents[1] / "build" / "repro_torch"
 
@@ -61,7 +63,7 @@ def _nvcc() -> str:
     default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if default.exists():
         return str(default)
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (not on PATH, nor under $CUDA_HOME/bin); the port's "
         "CUDA kernels are built from source at first use"
     )
@@ -101,7 +103,7 @@ def build(name: str) -> Path:
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
+        raise KernelError(
             f"nvcc failed for {src.name} (rc {proc.returncode}):\n"
             f"{proc.stdout}{proc.stderr}"
         )
@@ -112,11 +114,11 @@ def build(name: str) -> Path:
     return out
 
 
-def build_all() -> list[Path]:
-    """Build every kernel of :data:`KERNELS`, one ``nvcc`` each, all
-    started together."""
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
-        return list(pool.map(build, KERNELS))
+def build_all(names=tuple(KERNELS)) -> list[Path]:
+    """Build the kernels ``names`` (by default every kernel of
+    :data:`KERNELS`), one ``nvcc`` each, all started together."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -43,7 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import KernelInputError, resolve_device
 from repro_torch.accel import waterfill as wf
 from repro_torch.accel.waterfill import _bucket  # the widths the kernel takes
 
@@ -63,6 +63,13 @@ _PARAM_KEYS = (
 )
 
 IMPLS = ("cuda", "torch", "none")
+
+
+class ChunkBudgetError(RuntimeError):
+    """A batch did not drain within ``max_chunks`` chunks of ``t_chunk``
+    steps.  A property of the cells and the budget, not of the device: the
+    sweep worker demotes such a batch's cells to the discrete-event path,
+    where a kernel or device failure ends the run."""
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +279,7 @@ def _resolve_impl(impl: str | None, params: dict):
         impl = "cuda" if device.type == "cuda" else "torch"
     if impl == "cuda":
         if device.type != "cuda":
-            raise ValueError(
+            raise KernelInputError(
                 f"water-fill impl 'cuda' needs CUDA tensors, got {device}"
             )
         wf.check_batch(params["weight"], params["map_slots"],
@@ -300,7 +307,8 @@ def run_packed(
     done mask crosses back to the host, and finished cells no-op inside
     later chunks.  ``on_chunk(chunks_done, cells_done, cells_total)``
     runs between chunks.  Raises if ``max_chunks`` chunks don't drain
-    the batch (a liveness bug, not a tuning knob).  Returns the final
+    the batch (:class:`ChunkBudgetError`: a liveness bug, not a tuning
+    knob).  Returns the final
     state as numpy arrays."""
     device = params["arrival"].device
     water_fill_pair = _resolve_impl(impl, params)
@@ -320,7 +328,7 @@ def run_packed(
             if cell_done.all():
                 break
         else:
-            raise RuntimeError(
+            raise ChunkBudgetError(
                 f"accel cell batch did not converge in {max_chunks} "
                 f"chunks of {t_chunk} steps"
             )

@@ -148,13 +148,16 @@ def run_cells_accel(
     max_chunks: int = 256,
     on_chunk=None,
     device="cuda",
+    cells: list[dict] | None = None,
 ) -> list[dict]:
     """Run eligible specs as one batch per compute class on ``device``;
     returns scenario-report-compatible summary dicts in spec order.
 
     ``impl`` picks the hfsp water-fill (``"cuda"``, ``"torch"``; default
-    by device, see :mod:`repro_torch.accel.cell_step`).  ``wall_s`` is
-    the batch wall divided evenly across cells — the cells ran
+    by device, see :mod:`repro_torch.accel.cell_step`).  ``cells`` are
+    the specs' :func:`synthesize_cell` results where the caller already
+    made them (in spec order); otherwise they are made here.  ``wall_s``
+    is the batch wall divided evenly across cells — the cells ran
     concurrently, so per-cell wall is an accounting convention."""
     dev = resolve_device(device)
     if not specs:
@@ -171,8 +174,9 @@ def run_cells_accel(
         if not idx:
             continue
         t0 = time.perf_counter()
-        cells = [synthesize_cell(specs[i]) for i in idx]
-        packed = pack_cells(cells)
+        batch = [synthesize_cell(specs[i]) if cells is None else cells[i]
+                 for i in idx]
+        packed = pack_cells(batch)
         final = run_packed(
             params_from_numpy(packed, dev),
             t_chunk=t_chunk,
@@ -181,7 +185,7 @@ def run_cells_accel(
             on_chunk=on_chunk,
         )
         wall = time.perf_counter() - t0
-        for i, cell, summ in zip(idx, cells, summarize(packed, final)):
+        for i, cell, summ in zip(idx, batch, summarize(packed, final)):
             out[i] = {
                 "spec": specs[i].to_dict(),
                 "wall_s": round(wall / len(idx), 3),
@@ -209,12 +213,13 @@ def run_sweep_accel(
     resolve_device(device)
     cells = sweep.expand()
     eligible: list[tuple[str, ScenarioSpec]] = []
+    synthesized: list[dict] = []
     results: dict[str, dict] = {}
     for cid, spec in cells:
         ok, _reason = accel_eligible(spec)
         if ok:
             try:
-                synthesize_cell(spec)
+                synthesized.append(synthesize_cell(spec))
             except ValueError:
                 ok = False
         if ok:
@@ -230,6 +235,7 @@ def run_sweep_accel(
             t_chunk=t_chunk,
             max_chunks=max_chunks,
             device=device,
+            cells=synthesized,
         )
         for (cid, _), res in zip(eligible, batch):
             results[cid] = res

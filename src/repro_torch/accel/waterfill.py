@@ -39,6 +39,8 @@ import functools
 
 import torch
 
+from repro_torch import KernelError, KernelInputError
+
 #: Kernel launches made by :func:`water_fill_cuda`,
 #: :func:`water_fill_pair_cuda` and :func:`launch_pair` (one per call; a
 #: pair is one launch).
@@ -139,24 +141,27 @@ def _padded(caps, ws, slots, live):
     """Validate ``(B, W)`` rows and pad them to the bucket width with
     inert lanes (cap 0, weight 0, not live)."""
     if caps.dim() != 2:
-        raise ValueError(f"caps must be (B, W), got shape {tuple(caps.shape)}")
+        raise KernelInputError(
+            f"caps must be (B, W), got shape {tuple(caps.shape)}")
     b, w = caps.shape
     for name, x in (("ws", ws), ("live", live)):
         if x.shape != caps.shape:
-            raise ValueError(f"{name} shape {tuple(x.shape)} != caps {(b, w)}")
+            raise KernelInputError(
+                f"{name} shape {tuple(x.shape)} != caps {(b, w)}")
     if slots.shape != (b,):
-        raise ValueError(f"slots must be (B,) = ({b},), got {tuple(slots.shape)}")
+        raise KernelInputError(
+            f"slots must be (B,) = ({b},), got {tuple(slots.shape)}")
     if caps.dtype != torch.float64 or ws.dtype != torch.float64 \
             or slots.dtype != torch.float64:
-        raise TypeError("caps, ws and slots must be float64")
+        raise KernelInputError("caps, ws and slots must be float64")
     if live.dtype != torch.bool:
-        raise TypeError(f"live must be bool, got {live.dtype}")
+        raise KernelInputError(f"live must be bool, got {live.dtype}")
     devs = {caps.device, ws.device, slots.device, live.device}
     if len(devs) != 1:
-        raise ValueError(f"inputs lie on different devices: {devs}")
+        raise KernelInputError(f"inputs lie on different devices: {devs}")
     wp = _bucket(w)
     if wp > _MAX_WIDTH:
-        raise ValueError(f"width {w} pads to {wp} > {_MAX_WIDTH}")
+        raise KernelInputError(f"width {w} pads to {wp} > {_MAX_WIDTH}")
     if wp != w:
         pad = wp - w
 
@@ -183,8 +188,8 @@ def _check_pair(caps_m, caps_r, slots_m, slots_r, live_m, live_r):
     for name, m, r in (("caps", caps_m, caps_r), ("slots", slots_m, slots_r),
                        ("live", live_m, live_r)):
         if m.shape != r.shape:
-            raise ValueError(f"{name}_m shape {tuple(m.shape)} != "
-                             f"{name}_r {tuple(r.shape)}")
+            raise KernelInputError(f"{name}_m shape {tuple(m.shape)} != "
+                                   f"{name}_r {tuple(r.shape)}")
 
 
 def water_fill_pair_reference(caps_m, caps_r, ws, slots_m, slots_r, live_m,
@@ -234,7 +239,7 @@ def _launch(caps_m, caps_r, ws, slots_m, slots_r, live_m, live_r, out_m,
         with torch.cuda.device(idx):
             err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"waterfill kernel launch failed: cudaError {err} "
             f"(rows={rows}, phases={phases}, width={width})"
         )
@@ -243,7 +248,7 @@ def _launch(caps_m, caps_r, ws, slots_m, slots_r, live_m, live_r, out_m,
 
 def _require_cuda(x: torch.Tensor, fn: str) -> None:
     if x.device.type != "cuda":
-        raise ValueError(
+        raise KernelInputError(
             f"{fn} needs CUDA tensors, got {x.device}; the plain version "
             "takes CPU tensors"
         )
@@ -271,15 +276,17 @@ def check_batch(ws, slots_m, slots_r) -> None:
     device and are contiguous."""
     _require_cuda(ws, "launch_pair")
     if ws.dim() != 2 or ws.dtype != torch.float64 or not ws.is_contiguous():
-        raise ValueError("ws must be a contiguous f64 (B, W) tensor, got "
-                         f"{ws.dtype} {tuple(ws.shape)}")
+        raise KernelInputError(
+            "ws must be a contiguous f64 (B, W) tensor, got "
+            f"{ws.dtype} {tuple(ws.shape)}")
     b, w = ws.shape
     if _bucket(w) != w or w > _MAX_WIDTH:
-        raise ValueError(f"width {w} is not a bucket width <= {_MAX_WIDTH}")
+        raise KernelInputError(
+            f"width {w} is not a bucket width <= {_MAX_WIDTH}")
     for slots in (slots_m, slots_r):
         if slots.shape != (b,) or slots.dtype != torch.float64 \
                 or slots.device != ws.device or not slots.is_contiguous():
-            raise ValueError(
+            raise KernelInputError(
                 f"slots must be contiguous f64 ({b},) on {ws.device}, got "
                 f"{slots.dtype} {tuple(slots.shape)} on {slots.device}")
 
@@ -320,7 +327,7 @@ def water_fill(caps, ws, slots, live) -> torch.Tensor:
         return water_fill_cuda(caps, ws, slots, live)
     if caps.device.type == "cpu":
         return water_fill_reference(caps, ws, slots, live)
-    raise ValueError(f"unsupported device {caps.device}")
+    raise KernelInputError(f"unsupported device {caps.device}")
 
 
 def water_fill_pair(caps_m, caps_r, ws, slots_m, slots_r, live_m,
@@ -332,4 +339,4 @@ def water_fill_pair(caps_m, caps_r, ws, slots_m, slots_r, live_m,
         return water_fill_pair_cuda(*args)
     if caps_m.device.type == "cpu":
         return water_fill_pair_reference(*args)
-    raise ValueError(f"unsupported device {caps_m.device}")
+    raise KernelInputError(f"unsupported device {caps_m.device}")

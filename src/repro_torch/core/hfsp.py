@@ -102,7 +102,6 @@ from repro_torch.core.types import (
     TaskAttempt,
     TaskState,
 )
-from repro_torch.core import vcluster
 from repro_torch.core.vcluster import VirtualCluster
 
 
@@ -126,13 +125,16 @@ class HFSPConfig(SchedulerConfig):
     error_alpha: float = 0.0
     error_seed: int = 0
     # Virtual-cluster numeric backend ("numpy" | "torch" | "auto"); None
-    # defers to $REPRO_VC_BACKEND, then "auto" — numpy kernels that latch
-    # to torch once a phase's live-job count reaches vc_auto_threshold
-    # (the backends are held to bit-identical schedules by
+    # defers to $REPRO_VC_BACKEND, then "auto" — numpy kernels, each of
+    # which latches to torch once a phase's live-job count reaches its
+    # threshold (the backends are held to bit-identical schedules by
     # tests/test_torch_sim.py, so the switch is behavior-neutral).
     vc_backend: str | None = None
-    # Live-job threshold for the "auto" backend's numpy->torch latch.
-    vc_auto_threshold: int = vcluster.AUTO_TORCH_THRESHOLD
+    # Live-job threshold of the "auto" backend's numpy->torch latch, one
+    # for both kernels; None takes each kernel's own on a CUDA device
+    # (vcluster.AUTO_FILL_THRESHOLD, AUTO_PROJECT_THRESHOLD) and none on
+    # the CPU.
+    vc_auto_threshold: int | None = None
     # Device of the torch backend's kernels ("cuda" or "cpu"); a "torch"
     # or "auto" virtual cluster on a CUDA device raises at construction
     # when this process has none.
@@ -492,7 +494,7 @@ class HFSPScheduler(Scheduler):
         wider phase) does MORE work than two segmented single-phase
         projections, so the normal per-phase path wins."""
         vcs = [self.vc[p] for p in (Phase.MAP, Phase.REDUCE)]
-        if any(vc.backend != "torch" for vc in vcs):
+        if any(vc.project_backend != "torch" for vc in vcs):
             return
         cold = [vc for vc in vcs if vc.order_cache_cold()]
         if len(cold) < 2:

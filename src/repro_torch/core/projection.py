@@ -40,6 +40,7 @@ import functools
 
 import torch
 
+from repro_torch import KernelError, KernelInputError
 from repro_torch.accel.waterfill import _bucket, _tree_sum
 
 #: Kernel launches made by :func:`project_cuda` (one per call).
@@ -53,28 +54,31 @@ _INF = float("inf")
 def _check(rem, caps, ws, present, slots, now, lam0, floor) -> int:
     """Validate the arguments; returns the padded width."""
     if rem.dim() != 2:
-        raise ValueError(f"rem must be (B, W), got shape {tuple(rem.shape)}")
+        raise KernelInputError(
+            f"rem must be (B, W), got shape {tuple(rem.shape)}")
     b, w = rem.shape
     for name, x in (("caps", caps), ("ws", ws), ("present", present)):
         if x.shape != rem.shape:
-            raise ValueError(f"{name} shape {tuple(x.shape)} != rem {(b, w)}")
+            raise KernelInputError(
+                f"{name} shape {tuple(x.shape)} != rem {(b, w)}")
     for name, x in (("slots", slots), ("now", now), ("lam0", lam0)):
         if x.shape != (b,):
-            raise ValueError(f"{name} must be ({b},), got {tuple(x.shape)}")
+            raise KernelInputError(
+                f"{name} must be ({b},), got {tuple(x.shape)}")
     for name, x in (("rem", rem), ("caps", caps), ("ws", ws),
                     ("slots", slots), ("now", now), ("lam0", lam0)):
         if x.dtype != torch.float64:
-            raise TypeError(f"{name} must be float64, got {x.dtype}")
+            raise KernelInputError(f"{name} must be float64, got {x.dtype}")
     if present.dtype != torch.bool:
-        raise TypeError(f"present must be bool, got {present.dtype}")
+        raise KernelInputError(f"present must be bool, got {present.dtype}")
     devs = {x.device for x in (rem, caps, ws, present, slots, now, lam0)}
     if len(devs) != 1:
-        raise ValueError(f"inputs lie on different devices: {devs}")
+        raise KernelInputError(f"inputs lie on different devices: {devs}")
     if int(floor) < 0:
-        raise ValueError(f"floor must be >= 0, got {floor}")
+        raise KernelInputError(f"floor must be >= 0, got {floor}")
     wp = _bucket(w)
     if wp > _MAX_WIDTH:
-        raise ValueError(f"width {w} pads to {wp} > {_MAX_WIDTH}")
+        raise KernelInputError(f"width {w} pads to {wp} > {_MAX_WIDTH}")
     return wp
 
 
@@ -203,7 +207,7 @@ def project_cuda(rem, caps, ws, present, slots, now, lam0, floor=0):
     (same arguments and results as :func:`project_reference`)."""
     global launches
     if rem.device.type != "cuda":
-        raise ValueError(
+        raise KernelInputError(
             f"project_cuda needs CUDA tensors, got {rem.device}; the plain "
             "version takes CPU tensors"
         )
@@ -234,7 +238,7 @@ def project_cuda(rem, caps, ws, present, slots, now, lam0, floor=0):
             with torch.cuda.device(idx):
                 err = fn(*args, stream)
         if err != 0:
-            raise RuntimeError(
+            raise KernelError(
                 f"projection kernel launch failed: cudaError {err} "
                 f"(rows={b}, width={wp}, floor={floor})"
             )
@@ -250,4 +254,4 @@ def project(rem, caps, ws, present, slots, now, lam0, floor=0):
     if rem.device.type == "cpu":
         return project_reference(rem, caps, ws, present, slots, now, lam0,
                                  floor)
-    raise ValueError(f"unsupported device {rem.device}")
+    raise KernelInputError(f"unsupported device {rem.device}")

@@ -69,18 +69,35 @@ from repro_torch.core.types import Phase
 BACKENDS = ("numpy", "torch")
 
 #: Selectable backend choices: the kernel backends plus "auto", which
-#: starts on numpy and latches to torch once the live-job count crosses
-#: :data:`AUTO_TORCH_THRESHOLD` (below it, a device round trip per call
-#: costs more than the numpy loop).  The switch is behavior-neutral: the
-#: backends are held to bit-identical schedules (tests/test_torch_sim.py).
+#: starts both kernels on numpy and latches each one to torch on its own,
+#: once the live-job count reaches that kernel's threshold (below it, a
+#: device round trip per call costs more than the numpy loop).  The switch
+#: is behavior-neutral: the backends are held to bit-identical schedules
+#: (tests/test_torch_sim.py).
 BACKEND_CHOICES = BACKENDS + ("auto",)
 
 #: Environment override for the default backend.
 BACKEND_ENV = "REPRO_VC_BACKEND"
 
-#: Live jobs (per phase) at which an "auto" cluster switches its kernels
-#: to torch (the reference's threshold for its jax latch).
-AUTO_TORCH_THRESHOLD = 500
+#: Live jobs (per phase) at which an "auto" cluster on a CUDA device moves
+#: its projection to the card: the least count from which one wrapped
+#: call (numpy in, the projection kernel, numpy out) beat numpy's loop at
+#: every count measured, in chip_smoke.py's phase
+#: ``vcluster_wrapped_calls`` on an H100 80GB HBM3, 700.00 W: 334 us
+#: against 248 us at 8 jobs, 385 against 604 at 16, 4.1 ms against 42 ms
+#: at 1024 and 69 ms against 2.0 s at 8192.  End to end the gain is not
+#: shown yet: on paper-cluster-size's 10-machine hfsp cell (up to 37 live
+#: jobs a phase, 312 projections on the card, ~3 s a run) the "auto" over
+#: numpy wall was 0.947, 1.032 and 1.033 in three calls (phase
+#: ``scenarios_cli``), inside the run-to-run spread of ~12%.
+AUTO_PROJECT_THRESHOLD = 16
+
+#: Live jobs at which an "auto" cluster on a CUDA device moves its
+#: water-fill to K1; None: never.  In the same run numpy's loop won at
+#: every count measured, 4 to 8192 jobs: the wrapped K1 call took 86-158
+#: us (a host round trip around a few-us launch) against numpy's 11-100
+#: us, 158 against 100 at 8192.
+AUTO_FILL_THRESHOLD: int | None = None
 
 
 def resolve_backend(backend: str | None = None) -> str:
@@ -276,7 +293,7 @@ class VirtualCluster:
         phase: Phase,
         slots: int,
         backend: str | None = None,
-        auto_threshold: int = AUTO_TORCH_THRESHOLD,
+        auto_threshold: int | None = None,
         device: str = "cuda",
     ):
         self.phase = phase
@@ -286,18 +303,31 @@ class VirtualCluster:
         #: "auto" cluster (raises on "cuda" without CUDA); a "numpy"
         #: cluster never reads it.
         self.device = device if choice == "numpy" else resolve_device(device)
-        #: Numeric backend for water-fill/projection kernels ("numpy" or
-        #: "torch").  With choice "auto" this starts as "numpy" and latches
-        #: to "torch" the first time the live-job count reaches
-        #: ``auto_threshold`` (see _maybe_auto_upgrade) — latched, not
-        #: hysteretic, so one crossing cannot thrash between backends.
+        #: Numeric backend of the water-fill and of the projection
+        #: ("numpy" or "torch").  With choice "auto" both start as "numpy"
+        #: and each latches to "torch" the first time the live-job count
+        #: reaches its threshold in :attr:`_auto_at` (see
+        #: _maybe_auto_upgrade) — latched, not hysteretic, so one crossing
+        #: cannot thrash between backends.
+        self.fill_backend = self.project_backend = \
+            "numpy" if choice == "auto" else choice
+        #: {kernel attribute: live jobs at which it latches} for the
+        #: kernels still waiting under "auto".  ``auto_threshold`` sets one
+        #: count for both; by default each kernel takes its own measured
+        #: count on a CUDA device.  On the CPU the torch backend is the
+        #: kernels' plain versions, op by op on the host, which never beat
+        #: numpy's loops, so by default nothing latches there.
+        self._auto_at: dict[str, int] = {}
         if choice == "auto":
-            self.backend = "numpy"
-            self._auto_torch = True
-        else:
-            self.backend = choice
-            self._auto_torch = False
-        self.auto_threshold = auto_threshold
+            if auto_threshold is not None:
+                at = {"fill_backend": auto_threshold,
+                      "project_backend": auto_threshold}
+            elif self.device.type == "cuda":
+                at = {"fill_backend": AUTO_FILL_THRESHOLD,
+                      "project_backend": AUTO_PROJECT_THRESHOLD}
+            else:
+                at = {}
+            self._auto_at = {k: n for k, n in at.items() if n is not None}
         self._jobs: dict[int, _VJob] = {}
         self._alloc_cache: dict[int, int] | None = None
         # Allocated (vjob, slots) pairs with slots > 0 — the only jobs
@@ -375,14 +405,25 @@ class VirtualCluster:
         self._invalidate_alloc()
         self._invalidate_order()
 
+    @property
+    def backend(self) -> str:
+        """"numpy" or "torch" when both kernels run there, else "mixed".
+        The port reads :attr:`fill_backend` and :attr:`project_backend`;
+        this stands in for the reference's ``VirtualCluster.backend``
+        attribute, which its callers read."""
+        if self.fill_backend == self.project_backend:
+            return self.fill_backend
+        return "mixed"
+
     def _maybe_auto_upgrade(self) -> None:
-        """auto mode: latch numpy -> torch once live jobs reach the
-        threshold.  Membership growth is the only path that can cross it,
-        so this is checked on add_job only.  Behavior-neutral by the
+        """auto mode: latch a kernel numpy -> torch once live jobs reach
+        its threshold.  Membership growth is the only path that can cross
+        one, so this is checked on add_job only.  Behavior-neutral by the
         backend conformance contract (bit-identical schedules)."""
-        if self._auto_torch and len(self._jobs) >= self.auto_threshold:
-            self._auto_torch = False
-            self.backend = "torch"
+        for kernel, at in list(self._auto_at.items()):
+            if len(self._jobs) >= at:
+                setattr(self, kernel, "torch")
+                del self._auto_at[kernel]
 
     def remove_job(self, job_id: int) -> None:
         self._materialize()
@@ -526,7 +567,7 @@ class VirtualCluster:
             }
             rank = {j: v.size_rank for j, v in self._jobs.items()}
             self._alloc_cache = discrete_allocation(
-                demands, self.slots, rank, backend=self.backend,
+                demands, self.slots, rank, backend=self.fill_backend,
                 device=self.device,
             )
             self._allocated_cache = [
@@ -555,7 +596,7 @@ class VirtualCluster:
     def projected_finish(self, now: float) -> dict[int, float]:
         """Absolute PS finish time per job — HFSP's sort key (Sect. 3.1)."""
         self._materialize()
-        if self.backend == "torch":
+        if self.project_backend == "torch":
             from repro_torch.core import vcluster_torch
 
             ids, rem, caps, ws = self._state_arrays()
@@ -623,7 +664,7 @@ class VirtualCluster:
                     tt = v.task_time
                 rem_b[s, i] = r
                 caps_b[s, i] = float(self._whatif_ecap(v, r, tt))
-        if self.backend == "torch":
+        if self.project_backend == "torch":
             from repro_torch.core import vcluster_torch
 
             fin_b = vcluster_torch.project_finish_times_batch(

@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import KernelInputError, resolve_device
 from repro_torch.accel import waterfill
 from repro_torch.core import projection
 
@@ -95,7 +95,7 @@ def water_fill_batch(caps_b: np.ndarray, ws_b: np.ndarray, slots,
     dev = resolve_device(device)
     caps_b = np.asarray(caps_b, np.float64)
     if caps_b.ndim != 2:
-        raise ValueError("caps_b must be (B, N)")
+        raise KernelInputError("caps_b must be (B, N)")
     b, n = caps_b.shape
     if b == 0 or n == 0:
         return np.zeros((b, n))
@@ -192,7 +192,7 @@ def project_finish_times_batch(rem_b: np.ndarray, caps_b: np.ndarray,
     dev = resolve_device(device)
     rem_b = np.asarray(rem_b, np.float64)
     if rem_b.ndim != 2:
-        raise ValueError("rem_b must be (B, N)")
+        raise KernelInputError("rem_b must be (B, N)")
     b, n = rem_b.shape
     if b == 0 or n == 0:
         return np.zeros((b, n))

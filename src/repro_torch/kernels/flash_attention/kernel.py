@@ -47,6 +47,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch import KernelError
+
 #: Kernel launches made by :func:`flash_attention_cuda` (one per call),
 #: on either route.
 launches = 0
@@ -249,7 +251,7 @@ def flash_attention_cuda(q, k, v, *, scale: float, causal: bool = True,
         what = (f"tensor map refused, CUresult {err - 10000}" if err >= 10000
                 else "no cuTensorMapEncodeTiled in the driver" if err == -2
                 else f"error {err}")
-        raise RuntimeError(
+        raise KernelError(
             f"flash attention kernel launch failed: {what} "
             f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})"
         )

@@ -53,6 +53,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch import KernelError
 from repro_torch.kernels import aligned as _aligned
 from repro_torch.kernels import chunk_tile as _tile
 
@@ -179,7 +180,7 @@ def rwkv6_cuda(r, k, v, w, u, s0, *, chunk: int = 64):
                  st.data_ptr(), sync.data_ptr(), ctypes.addressof(strides),
                  b, h, t, dk, tile, _DTYPE_CODES[r.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"rwkv6 kernel launch failed: error {err} "
+        raise KernelError(f"rwkv6 kernel launch failed: error {err} "
                            f"(r {tuple(r.shape)}, {r.dtype}, chunk {tile})")
     launches += 1
     return o, s_out

@@ -44,6 +44,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch import KernelError
 from repro_torch.kernels import aligned as _aligned
 from repro_torch.kernels import chunk_tile as _tile
 
@@ -182,7 +183,7 @@ def ssd_cuda(x, dt, a, B, C, s0, *, chunk: int = 64):
                  sync.data_ptr(), ctypes.addressof(strides), b, h, t, p, n,
                  tile, _DTYPE_CODES[x.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"ssd kernels' launch failed: error {err} "
+        raise KernelError(f"ssd kernels' launch failed: error {err} "
                            f"(x {tuple(x.shape)}, n {n}, {x.dtype}, "
                            f"chunk {tile})")
     launches += 1

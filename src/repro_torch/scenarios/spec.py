@@ -16,7 +16,9 @@ by composing orthogonal axes:
   model (Fig. 6), virtual-cluster numeric backend;
 * **sim**      — executor knobs (heartbeat).
 
-Specs are frozen and hashable; ``to_dict`` is their plain-JSON form.
+Specs are frozen, hashable, and round-trip losslessly through plain JSON
+dicts (``to_dict`` / ``from_dict``): a spawned sweep attempt receives its
+cell as that dict.
 """
 
 from __future__ import annotations
@@ -202,6 +204,23 @@ class ScenarioSpec:
         if self.faults.enabled:
             d["faults"] = _axis_dict(self.faults)
         return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ScenarioSpec":
+        v = d.get("version", SPEC_VERSION)
+        if v != SPEC_VERSION:
+            raise ValueError(
+                f"scenario spec version {v} != supported {SPEC_VERSION}"
+            )
+        return cls(
+            name=d.get("name", "scenario"),
+            workload=WorkloadAxis(**d.get("workload", {})),
+            cluster=ClusterAxis(**d.get("cluster", {})),
+            scheduler=SchedulerAxis(**d.get("scheduler", {})),
+            heartbeat=d.get("heartbeat", 3.0),
+            event_epsilon=d.get("event_epsilon", "auto"),
+            faults=FaultAxis(**d.get("faults", {})),
+        )
 
     # -- identity ------------------------------------------------------------
     def spec_hash(self) -> str:

@@ -353,4 +353,5 @@ def test_port_imports_neither_jax_nor_repro():
         "vcluster_torch", "projection", "vcluster", "types", "estimator",
         "scheduler", "disciplines", "fifo", "fair", "hfsp", "faults",
         "simulator", "metrics")} | {f"repro_torch.scenarios.{m}" for m in (
-            "report", "runner", "trace")} <= seen
+            "report", "runner", "trace", "lease", "store", "coordinator",
+            "sweep", "worker", "__main__")} <= seen

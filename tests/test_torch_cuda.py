@@ -61,11 +61,15 @@ that has only the port's dependencies:
   of zero weights and resumed at a level; a width that is not a bucket
   width; rows stopped at a floor), with bitwise reruns and one launch per
   call (the plain version is held to the reference on the CPU in
-  tests/test_torch_vcluster.py).
+  tests/test_torch_vcluster.py);
+* one accel batch of the sweep worker (``run_worker(compute="accel")``)
+  on the card: one K1 launch per step of the hfsp batch, and the stored
+  reports equal (wall aside) to a direct run with K1's plain version.
 """
 
 import dataclasses
 import importlib.util
+import json
 from pathlib import Path
 
 import numpy as np
@@ -499,3 +503,35 @@ def test_projection_kernel_matches_plain_version_on_card(cuda, name):
     assert pj.launches == before + 2
     assert SMOKE.carry_equal(got, want)
     assert SMOKE.carry_equal(again, got)
+
+
+@pytest.mark.cuda
+def test_worker_accel_batch_runs_on_card(cuda, tmp_path):
+    """One accel batch through ``run_worker(compute="accel")`` on the card:
+    both cells in one batch, one K1 launch per step of the hfsp batch
+    (whole chunks of 512), and each stored report equal (wall aside) to a
+    direct ``run_cells_accel`` with the plain water-fill on the card."""
+    from repro_torch.accel import run_cells_accel
+    from repro_torch.scenarios.presets import paper_fb_base, quick_sweep
+    from repro_torch.scenarios.spec import SweepSpec
+    from repro_torch.scenarios.store import open_store
+    from repro_torch.scenarios.worker import run_worker
+
+    sweep = quick_sweep(SweepSpec(
+        name="fifo-hfsp", base=paper_fb_base(),
+        grids=(SweepSpec.grid(**{"scheduler.policy": ("fifo", "hfsp")}),)))
+    path = tmp_path / "w.sqlite"
+    before = wf.launches
+    summary = run_worker(sweep, path, compute="accel", device="cuda")
+    launches = wf.launches - before
+    assert (summary["accel_batches"], summary["accel_cells"]) == (1, 2)
+    stored = {cid: r for (cid, _), r in open_store(path).load().items()}
+    steps = stored["scheduler.policy=hfsp"]["accel_steps"]
+    assert launches == -(-steps // 512) * 512 > 0
+    cells = sweep.expand()
+    plain = run_cells_accel([s for _, s in cells], device="cuda",
+                            impl="torch")
+    for (cid, _), want in zip(cells, plain):
+        want = json.loads(json.dumps(want))  # as the store holds it
+        got = {k: v for k, v in stored[cid].items() if k != "wall_s"}
+        assert got == {k: v for k, v in want.items() if k != "wall_s"}
