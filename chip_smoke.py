@@ -23,7 +23,7 @@ script exits non-zero:
    give the same summaries; every job completes and hfsp and srpt beat
    fifo on mean sojourn at alpha 0 on every seed; one K1 launch per hfsp
    step by counter (and by name in a profile of the hfsp batch, in
-   phase 7);
+   phase 9);
 4. wide rows: 4 hfsp cells of 1000 ``fb_scaled`` jobs on 100 machines
    (width 1024) through the same entry point, kernel and plain version;
 5. the discrete-event path (``des_main_path``): paper-fb at full width
@@ -76,14 +76,29 @@ script exits non-zero:
    most 14) launches nothing, each report equal to numpy's and each
    timed against numpy in turns after an untimed run (numpy, auto,
    auto, numpy, numpy, auto);
-8. K1 timing on inputs captured from the accel path (the hfsp batch's
+8. the live service (``service_main_path``): paper-fb's cluster and 100
+   FB jobs (``paper_fb_base()``) through ``repro_torch.service`` in this
+   process, as users run it: ``LiveEngine.create(policy="hfsp",
+   device="cuda")`` with ``REPRO_VC_BACKEND=torch``, a ``Master``, worker
+   agents on all 100 machines, 4 users submitting their jobs over the
+   wire with tags at arrival / 100 (the time scale, cut from production's
+   1.0: ~19 s of wall), machine 7's worker killed a third of the way in
+   and rejoined; all 100 jobs complete, the journal holds the crash and
+   the recover, ``replay_journal`` of the journal on the card with torch
+   and with numpy virtual clusters gives the live fingerprint and
+   completions, K1's and the projection kernel's launches are > 0 and
+   equal their calls, and with ``CUDA_VISIBLE_DEVICES=""`` ``python -m
+   repro_torch.service master --device cuda`` exits non-zero without a
+   ``LISTENING`` line; it prints the decision latency (p50, p99), the
+   session's wall and the launches;
+9. K1 timing on inputs captured from the accel path (the hfsp batch's
    first 256 steps at 16 x 128 and the wide cells' at 4 x 1024), as
    pairs and as single-phase calls, graph-replayed, beside the bound of
    the work, the host time per step and the floor any launch pays (a
    one-element ``add_``); the main path's hfsp batch once more under the
    profiler (one K1 launch per step by name), the kernels of one hfsp step
    counted in a CUDA graph, and a short profile of the hfsp step;
-9. the flash attention kernel (K2) against its plain PyTorch version on
+10. the flash attention kernel (K2) against its plain PyTorch version on
    the card, f32 (the CUDA-core kernel ``flash_fwd``, atol = rtol = 2e-5)
    and bf16 (the tensor-core kernel ``flash_tc``, both atol 2e-2 and
    atol 4e-3 with rtol 1.6e-2), on the shapes of tests/test_kernels.py,
@@ -94,24 +109,24 @@ script exits non-zero:
    shapes, outputs of deliberately wrong attention (a kv tile dropped,
    the diagonal key dropped past row 1024, the last kv tile dropped for
    the last 128 rows of one head) must fail the bf16 tolerance;
-10. the serving path: olmo-1b at its published widths (16 layers, d_model
+11. the serving path: olmo-1b at its published widths (16 layers, d_model
    2048, vocab 50304; random weights from ``--seed``) through
    ``make_prefill_step(use_flash=True, last_token_only=True)`` on 4 x 4096
    prompt tokens in bf16, cold and warm (16 launches of the tensor-core
    K2 per prefill and none of the CUDA-core one, by counter and by name in
    the profile), a profile of one prefill, then ``greedy_generate`` for 4
    requests of 64 prompt and 32 new tokens;
-11. serving cross-checks in f32 on the same weights: prefill logits with K2
+12. serving cross-checks in f32 on the same weights: prefill logits with K2
    (its f32 route) against the plain version (atol 1e-3), and the last
    prompt position's prefill logits against the decode-cache route's (atol
    1e-3); then in bf16 on 1 x 1024: prefill logits with the tensor-core K2
    against the same prefill through K2's plain version, within 2e-2 of
    max |logit|;
-12. K2 timing at the olmo shape beside its bound, the plain version and
+13. K2 timing at the olmo shape beside its bound, the plain version and
    ``F.scaled_dot_product_attention`` (timed only, never on the path): its
    achieved TFLOP/s, share of the bound and ratio to SDPA, and the f32
    route's time on the same inputs in f32;
-13. the RWKV6 WKV scan kernel (K3: ``rwkv6_scan``, one block per chunk,
+14. the RWKV6 WKV scan kernel (K3: ``rwkv6_scan``, one block per chunk,
     head and batch row, the entering state handed from block to block
     through a two-slot ring per head) against its plain PyTorch version on
     the card, f32 output and state at atol = rtol = 1e-4 and bf16 r/k/v
@@ -124,7 +139,7 @@ script exits non-zero:
     chunk's entering state zeroed, one channel of the state missing a
     chunk's decay, a chunk's bonus diagonal dropped) must fail the output
     tolerance;
-14. the rwkv6 serving path, after olmo-1b's weights are freed: rwkv6-1.6b
+15. the rwkv6 serving path, after olmo-1b's weights are freed: rwkv6-1.6b
     at its published widths (24 layers, d_model 2048, 32 heads of 64,
     d_ff 7168, vocab 65536, untied head; 1,583,941,632 parameters, random
     from ``--seed``) through ``make_prefill_step(use_scan_kernel=True,
@@ -133,15 +148,15 @@ script exits non-zero:
     name in the profile, and the replaced ``rwkv6_fwd`` none), a profile
     of one prefill, then ``greedy_generate`` for 4 requests of 64 prompt
     and 32 new tokens;
-15. rwkv6 cross-checks in f32 on the same weights: 1 x 1024 prefill
+16. rwkv6 cross-checks in f32 on the same weights: 1 x 1024 prefill
     logits with K3 against the plain version and the ``rwkv_scan_chunked``
     route, and the last prompt position's prefill logits against the
     decode route's on 200 tokens (atol 1e-3 each);
-16. K3 timing at the rwkv6 shape beside its bound (and its share of it)
+17. K3 timing at the rwkv6 shape beside its bound (and its share of it)
     and the plain version (no single PyTorch call computes the scan, so no
     library time), in bf16 and with f32 inputs, each against the bound of
     its own input bytes;
-17. the Mamba2 SSD scan (K4: two kernels, ``ssd_cb`` and ``ssd_scan``,
+18. the Mamba2 SSD scan (K4: two kernels, ``ssd_cb`` and ``ssd_scan``,
     one launch count) against its plain PyTorch version on
     the card, f32 y and state at atol = rtol = 1e-4 and bf16 x/B/C (f32
     dt/a) at atol = rtol = 2e-2, on the shapes of tests/test_kernels.py,
@@ -151,7 +166,7 @@ script exits non-zero:
     zamba2-2.7b's shape, three faulty outputs (a late chunk's entering
     state zeroed, one p-slice missing a chunk's decay, a chunk's diagonal
     scores dropped) must fail the y tolerance;
-18. the zamba2 serving path, after rwkv6's weights are freed: zamba2-2.7b
+19. the zamba2 serving path, after rwkv6's weights are freed: zamba2-2.7b
     at its published widths (54 mamba2 layers, d_model 2560, ssm_state 64,
     heads of 64; one shared attention+MLP block of 32 heads of 80 and
     d_ff 10240 after every 6th layer; vocab 32000, tied embeddings;
@@ -163,27 +178,26 @@ script exits non-zero:
     and none of the CUDA-core K2), profiles of a prefill and
     a decode step, then ``greedy_generate`` for 4 requests of 64 prompt
     and 32 new tokens;
-19. zamba2 cross-checks in f32 on the same weights: 1 x 1024 prefill
+20. zamba2 cross-checks in f32 on the same weights: 1 x 1024 prefill
     logits with K4 and K2 against K4's plain version, the
     ``ssd_scan_chunked`` route and K2's plain version, and the last prompt
     position's prefill logits against the decode route's on 200 tokens
     (atol 1e-3 each);
-20. K4 timing at the zamba2 shape beside its bound and the plain version
+21. K4 timing at the zamba2 shape beside its bound and the plain version
     (no single PyTorch call computes the scan, so no library time), in
     bf16 and with f32 inputs, and each of its kernels' profiled time per
     launch, and
     K2 at zamba2's head dim 80 beside its bound, its plain version and
-    ``F.scaled_dot_product_attention``, with the same fields as phase 11;
-21. the ``{"kernels": [...]}`` line (K1, K2, K3, K4 and the projection
+    ``F.scaled_dot_product_attention``, with the same fields as phase 13;
+22. the ``{"kernels": [...]}`` line (K1, K2, K3, K4 and the projection
     kernel), the card's name and power limit, and the final ``{"ok":
     true, ...}`` line.
 
 Each main path (the accel matrix, the wide rows, the discrete-event
 path's two cells, the scenario worker's batch, the CLI sweep's hfsp
-cell, the "auto" latch's cell, olmo-1b serving, rwkv6 serving, zamba2
-serving) runs
-with every kernel's launch count set to 0 just before it and read just
-after.
+cell, the "auto" latch's cell, the live service's session, olmo-1b
+serving, rwkv6 serving, zamba2 serving) runs with every kernel's launch
+count set to 0 just before it and read just after.
 """
 
 from __future__ import annotations
@@ -1494,6 +1508,201 @@ def phase_scenarios_cli():
 
 
 # ---------------------------------------------------------------------------
+# The live service (repro_torch.service)
+# ---------------------------------------------------------------------------
+#: The live session's virtual seconds per wall second: paper-fb's 1891
+#: virtual seconds of makespan in ~19 s of wall (production runs at 1).
+SERVICE_TIME_SCALE = 100.0
+SERVICE_USERS = 4
+#: Machine 7's worker dies a third of the way into the session (wall s
+#: after the first submission could go out) and rejoins at two thirds,
+#: once its death was declared.
+SERVICE_KILL = (7, 6.0, 12.0)
+#: Heartbeat silence (wall s) after which the master declares a worker
+#: dead.  The master reads heartbeats on the event loop its advances
+#: hold: on the card's host single advances took up to ~0.6 s (p999),
+#: and one run declared two live workers dead at 1 s.
+SERVICE_DEAD_WALL = 5.0
+
+
+async def live_session(journal, device: str) -> dict:
+    """paper-fb's 100 jobs through a live master in this process, as users
+    run it: worker agents on all 100 machines, four users submitting their
+    jobs over the wire at arrival / SERVICE_TIME_SCALE, machine 7's worker
+    killed and rejoined.  Returns what the session showed."""
+    import asyncio
+
+    from repro_torch.scenarios.presets import paper_fb_base
+    from repro_torch.scenarios.runner import build_cluster, build_workload
+    from repro_torch.scenarios.trace import job_record
+    from repro_torch.service import (LiveEngine, Master, MasterConfig,
+                                     WorkerAgent, live_fingerprint)
+    from repro_torch.service.protocol import ServiceClient
+
+    spec = paper_fb_base()
+    cluster = build_cluster(spec)
+    jobs, _ = build_workload(spec)
+    engine = LiveEngine.create(journal, "hfsp", cluster,
+                               time_scale=SERVICE_TIME_SCALE, device=device)
+    master = Master(engine, MasterConfig(worker_dead_wall=SERVICE_DEAD_WALL))
+    await master.start()
+    workers = {}
+    for m in range(cluster.num_machines):
+        workers[m] = WorkerAgent("127.0.0.1", master.port, m)
+        await workers[m].start()
+    while len(master.workers) < cluster.num_machines:
+        await asyncio.sleep(0.01)
+    replies = []
+    t0 = time.monotonic()
+
+    def submit_all(user: int) -> None:
+        mine = sorted((j for j in jobs if j.job_id % SERVICE_USERS == user),
+                      key=lambda j: j.arrival_time)
+        with ServiceClient("127.0.0.1", master.port, timeout=60.0) as c:
+            for job in mine:
+                delay = t0 + job.arrival_time / SERVICE_TIME_SCALE \
+                    - time.monotonic()
+                if delay > 0:
+                    time.sleep(delay)
+                payload = {k: v for k, v in job_record(job).items()
+                           if k not in ("job_id", "arrival_time")}
+                replies.append(c.call({
+                    "op": "submit", "user": f"user{user}",
+                    "tag": f"fb-{job.job_id}", "job": payload}))
+
+    loop = asyncio.get_running_loop()
+    clients = [loop.run_in_executor(None, submit_all, u)
+               for u in range(SERVICE_USERS)]
+    machine, kill_s, rejoin_s = SERVICE_KILL
+    counters = master.telemetry.counters
+    await asyncio.sleep(max(0.0, t0 + kill_s - time.monotonic()))
+    await workers[machine].die()
+    await asyncio.sleep(max(0.0, t0 + rejoin_s - time.monotonic()))
+    while counters["worker_crashes"] == 0:
+        if time.monotonic() - t0 > kill_s + 3 * SERVICE_DEAD_WALL:
+            raise AssertionError("service: machine 7's death was not "
+                                 "declared")
+        await asyncio.sleep(0.01)
+    workers[machine] = WorkerAgent("127.0.0.1", master.port, machine)
+    await workers[machine].start()
+    await asyncio.gather(*clients)
+    completion = engine.sim.result.completion
+    while len(completion) < len(jobs) and time.monotonic() - t0 < 120.0:
+        await asyncio.sleep(0.01)
+    wall = time.monotonic() - t0
+    snap = master.telemetry.snapshot(workers=master._worker_block())
+    out = {"fingerprint": live_fingerprint(engine.sim),
+           "completion": dict(completion), "jobs": len(jobs),
+           "replies": replies, "wall_s": wall, "snapshot": snap,
+           "advance_s": sum(engine.decision_latency_s),
+           "max_advance_ms": 1e3 * max(engine.decision_latency_s),
+           "machines": cluster.num_machines,
+           "worker_crashes": counters["worker_crashes"],
+           "worker_rejoins": counters["worker_rejoins"]}
+    await master.stop()
+    for w in workers.values():
+        await w.die()
+    return out
+
+
+def phase_service_main_path():
+    """The live service at paper scale on the card (see the module
+    docstring).  Returns the launches of the live session."""
+    import asyncio
+    import os
+    import tempfile
+
+    from repro_torch.service import (live_fingerprint, read_journal,
+                                     replay_journal)
+
+    tmp = Path(tempfile.mkdtemp(prefix="service-"))
+    journal = tmp / "live.jsonl"
+    with vc_backend_env("torch"):
+        reset_counts()
+        live = asyncio.run(asyncio.wait_for(live_session(journal, "cuda"),
+                                            180.0))
+        torch.cuda.synchronize()
+        counts = des_counts()
+    check_des_counts("service paper-fb-live", counts)
+    bad = [r for r in live["replies"] if not r.get("ok")]
+    if bad or not len(live["completion"]) == live["jobs"] == 100:
+        raise AssertionError(f"service: {len(live['completion'])} of "
+                             f"{live['jobs']} jobs completed; refused {bad}")
+    if not (live["worker_crashes"] == live["worker_rejoins"] == 1):
+        raise AssertionError(f"service: crashes {live['worker_crashes']}, "
+                             f"rejoins {live['worker_rejoins']}, want 1 each")
+    kinds = {e.get("event") for e in read_journal(journal)[1]}
+    if not {"crash", "recover"} <= kinds:
+        raise AssertionError(f"service: journal events {kinds}")
+
+    # The device rule over the CLI, beside the twins: without a card the
+    # master exits non-zero and never listens.
+    nocard = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.service", "master", "--device",
+         "cuda", "--journal", str(tmp / "nocard.jsonl")], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "CUDA_VISIBLE_DEVICES": ""},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    twins = {}
+    for backend in ("torch", "numpy"):
+        with vc_backend_env(backend):
+            t0 = time.perf_counter()
+            sim = replay_journal(journal, device="cuda")
+            torch.cuda.synchronize()
+            twins[backend] = {"wall_s": time.perf_counter() - t0,
+                              "fingerprint": live_fingerprint(sim),
+                              "equal": live_fingerprint(sim)
+                              == live["fingerprint"]
+                              and dict(sim.result.completion)
+                              == live["completion"]}
+        if not twins[backend]["equal"]:
+            raise AssertionError(f"service: the {backend} twin != live: "
+                                 f"{twins[backend]} vs {live['fingerprint']}")
+    try:
+        out, err = nocard.communicate(timeout=60)
+    finally:
+        if nocard.poll() is None:
+            nocard.kill()
+            nocard.communicate()
+    if nocard.returncode == 0 or "LISTENING" in out or \
+            (tmp / "nocard.jsonl").exists():
+        raise AssertionError(f"service without a card: rc "
+                             f"{nocard.returncode}, {out!r}, {err[-500:]!r}")
+
+    lat = live["snapshot"]["decision_latency_ms"]
+    card = card_line()
+    print(f"service paper-fb-live: decision latency p50 {lat['p50']} ms, "
+          f"p99 {lat['p99']} ms over {lat['count']} advances", flush=True)
+    print(f"service paper-fb-live: session wall {live['wall_s']} s",
+          flush=True)
+    print(f"service paper-fb-live: launches K1 {counts['k1_launches']}, "
+          f"P {counts['project_launches']}", flush=True)
+    print(card, flush=True)
+    emit("service_main_path", cell="paper-fb-live", policy="hfsp",
+         jobs=live["jobs"], completed=len(live["completion"]),
+         machines=live["machines"], users=SERVICE_USERS,
+         reduced={"time_scale": SERVICE_TIME_SCALE},
+         session_wall_s=live["wall_s"], decision_latency_ms=lat,
+         max_advance_ms=live["max_advance_ms"],
+         advance_s=live["advance_s"],
+         sojourn=live["snapshot"]["sojourn"],
+         passes=live["snapshot"]["passes"],
+         events=live["snapshot"]["events"],
+         event_epsilon=live["snapshot"]["event_epsilon"],
+         decisions={d: sum(r.get("decision") == d for r in live["replies"])
+                    for d in ("admit", "queued")},
+         worker_crashes=live["worker_crashes"],
+         worker_rejoins=live["worker_rejoins"],
+         live_fingerprint=live["fingerprint"], twins=twins,
+         nocard_rc=nocard.returncode, card=card,
+         **counts)
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Flash attention (K2) and the dense serving path
 # ---------------------------------------------------------------------------
 #: (name, b, h, kvh, s, hd, block_q, block_kv, window, causal): the shapes
@@ -2628,15 +2837,20 @@ def main() -> int:
                    des_launches)
     scenario_launches = run_phase("scenarios_cli", phase_scenarios_cli)
     kp["launches_by_path"].update(scenario_launches["project"])
+    service = run_phase("service_main_path", phase_service_main_path)
+    kp["launches_by_path"]["service paper-fb-live"] = \
+        service["project_launches"]
     kp["launches"] = sum(kp["launches_by_path"].values())
     k1 = run_phase("kernel_timing", phase_kernel_timing, main_launches,
                    wide_specs)
     # K1 runs on the accel matrix, both cells of the discrete-event path
     # (one call per virtual-cluster water-fill) and the scenario entry
-    # points (the worker's accel batch, one hfsp cell of the CLI's sweep).
+    # points (the worker's accel batch, one hfsp cell of the CLI's sweep)
+    # and the live service's session.
     k1["launches_by_path"] = {"accel paper-64": main_launches, **{
         f"des {cell}": c["k1_launches"] for cell, c in des_launches.items()},
-        **scenario_launches["k1"]}
+        **scenario_launches["k1"],
+        "service paper-fb-live": service["k1_launches"]}
     k1["launches"] = sum(k1["launches_by_path"].values())
     run_phase("flash_kernel_vs_plain", phase_flash_kernel_vs_plain, args.seed)
     cfg, params, serve_launches, per_prefill = run_phase(

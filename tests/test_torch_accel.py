@@ -354,4 +354,7 @@ def test_port_imports_neither_jax_nor_repro():
         "scheduler", "disciplines", "fifo", "fair", "hfsp", "faults",
         "simulator", "metrics")} | {f"repro_torch.scenarios.{m}" for m in (
             "report", "runner", "trace", "lease", "store", "coordinator",
-            "sweep", "worker", "__main__")} <= seen
+            "sweep", "worker", "__main__")} | {
+                f"repro_torch.service.{m}" for m in (
+                    "protocol", "journal", "admission", "telemetry", "engine",
+                    "master", "worker", "__main__")} <= seen
