@@ -189,15 +189,48 @@ script exits non-zero:
     launch, and
     K2 at zamba2's head dim 80 beside its bound, its plain version and
     ``F.scaled_dot_product_attention``, with the same fields as phase 13;
-22. the ``{"kernels": [...]}`` line (K1, K2, K3, K4 and the projection
+22. training (``train_main_path``), after zamba2's weights are freed:
+    olmo-1b at its published widths (16 layers, d_model 2048, 16 heads of
+    128, d_ff 8192, vocab 50304; random weights from ``--seed``) through
+    ``make_train_step`` with ``TrainConfig(remat="block")`` and
+    ``OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=50)``, bf16
+    activations and f32 master weights and moments, five steps on one
+    4 x 4096 ``SyntheticLM`` batch: finite losses, the fifth below the
+    first, no launch of K2, K3 or K4 (the training path has no kernel:
+    their wrappers refuse grads); step ms cold and warm, tokens/s, peak
+    memory, the model FLOPs of a step (``train_flops``) as TFLOP/s and
+    as a share of the bf16 peak, and a profile of one step; then the
+    EAGER suspension at full width: from the fifth step's state, two
+    steps, ``CheckpointStore.save`` of the whole state (~14 GB), the
+    state dropped from the card, restored and two more steps, bitwise
+    equal to four uninterrupted steps from the same state (save and
+    restore seconds and bytes); and ``flash_attention_cuda`` refuses a
+    bf16 input that requires grad (``KernelInputError``) and runs under
+    ``torch.no_grad()``;
+23. the gang runtime (``gang_main_path``): ``GangRuntime`` on the card
+    under ``HFSPScheduler(HFSPConfig(sample_set_size=1,
+    vc_backend="torch"))`` on one machine with two map slots
+    (``GANG_JOBS``: olmo_1b, rwkv6_1b6 and zamba2_2b7 SMOKE jobs in f32
+    of 8, 4 and 2 steps, quanta of 2, 64 x 8 tokens a step): every job
+    completes, HFSP suspends a job (offloads and restores >= 1), each
+    job's final state equals the same steps run straight through
+    ``make_train_step`` on the card, bitwise, and K1's and P's launches
+    are > 0 and equal their virtual clusters' calls;
+24. ``ml_workload``: the ``ml-workload`` preset's three cells (fifo,
+    fair, hfsp; 40 ML jobs on 8 machines) through
+    ``run_scenario(device="cuda")`` with torch and with numpy virtual
+    clusters: reports equal (wall aside), every job completes, and the
+    hfsp cell launches K1 and P as often as it calls them;
+25. the ``{"kernels": [...]}`` line (K1, K2, K3, K4 and the projection
     kernel), the card's name and power limit, and the final ``{"ok":
     true, ...}`` line.
 
 Each main path (the accel matrix, the wide rows, the discrete-event
 path's two cells, the scenario worker's batch, the CLI sweep's hfsp
 cell, the "auto" latch's cell, the live service's session, olmo-1b
-serving, rwkv6 serving, zamba2 serving) runs with every kernel's launch
-count set to 0 just before it and read just after.
+serving, rwkv6 serving, zamba2 serving, olmo-1b training, the gang
+runtime, ml-workload's cells) runs with every kernel's launch count set
+to 0 just before it and read just after.
 """
 
 from __future__ import annotations
@@ -1880,7 +1913,7 @@ def names_of(kernel) -> tuple[str, ...]:
     return (kernel,) if isinstance(kernel, str) else tuple(kernel)
 
 
-def profile_device(fn, steps: int, shares: dict):
+def profile_device(fn, steps: int, shares: dict, top: int = 6):
     """Device time by kernel over ``steps`` calls of ``fn()``, the
     device's busy share of their wall, and for each ``share: kernel`` of
     ``shares`` the share of device time of the kernels whose name holds
@@ -1904,7 +1937,7 @@ def profile_device(fn, steps: int, shares: dict):
                    if any(one in ev.key for one in names_of(kernel)))
         / total_us if measured else "not measured"
         for share, kernel in shares.items()}
-    top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:6]
+    top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:top]
     return {
         "launches_by_kernel": {
             one: sum(ev.count for ev in kernels if one in ev.key) / steps
@@ -2801,6 +2834,318 @@ def phase_flash_timing_hd80(seed: int, serve_launches: int,
     return entry
 
 
+# ---------------------------------------------------------------------------
+# Training (olmo-1b at full width), the gang runtime and ml-workload
+# ---------------------------------------------------------------------------
+TRAIN_BATCH = (4, 4096)  # the reference's train_4k length
+TRAIN_STEPS = 5
+#: The gang cell: (arch, total steps, arrival s) at SMOKE widths in f32,
+#: quanta of 2 steps, 64 x 8 tokens a step.  One machine with two map
+#: slots: a granted quantum waits in its slot until the runtime's next
+#: pass runs it, so a job that arrives meanwhile can make HFSP suspend it
+#: (with one slot a quantum runs in the pass that grants it, and nothing
+#: is ever suspended).  The arrivals fall inside the first job's first
+#: quantum.
+#: Kinds of kernel in a profiled train step, by name: the shares of
+#: device time may overlap (a copy or cast is an elementwise kernel).
+TRAIN_KERNEL_KINDS = {
+    "gemm_share": ("gemm", "nvjet", "xmma", "cutlass"),
+    "softmax_share": ("SoftMax",),
+    "elementwise_share": ("elementwise_kernel",),
+    "copy_cast_share": ("direct_copy",),
+    "reduce_share": ("reduce_kernel",),
+}
+GANG_JOBS = (("olmo_1b", 8, 0.0), ("rwkv6_1b6", 4, 0.01),
+             ("zamba2_2b7", 2, 0.02))
+
+
+def model_kernel_launches() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rwkv6 import kernel as rk
+    from repro_torch.kernels.ssd import kernel as sk
+
+    return {"k2": fk.launches, "k3": rk.launches, "k4": sk.launches}
+
+
+def train_flops(cfg, b: int, s: int) -> dict:
+    """Model FLOPs of one train step with per-layer remat and the plain
+    attention: 6 N T for the products with weights (N counts the tied
+    unembedding once, as its product runs once), the layers' forward
+    once more (remat), and the attention products (full s x s scores, as
+    the plain attention computes them) forward, backward (2x) and again
+    under remat."""
+    d, L, hd = cfg.d_model, cfg.num_layers, cfg.head_size
+    h, kvh, dff, v = cfg.num_heads, cfg.kv_heads, cfg.d_ff, cfg.padded_vocab
+    glu = 3 if cfg.act.endswith("_glu") else 2
+    layer_n = d * (h + 2 * kvh) * hd + h * hd * d + glu * d * dff
+    n = L * layer_n + d * v
+    tokens = b * s
+    attn_fwd = L * 4 * b * h * s * s * hd
+    out = {"weights_6NT": 6 * n * tokens, "remat_forward": 2 * L * layer_n
+           * tokens, "attention": 4 * attn_fwd, "matmul_params": n}
+    out["total"] = out["weights_6NT"] + out["remat_forward"] + out["attention"]
+    return out
+
+
+def tree_leaves(tree) -> list:
+    from repro_torch.models.params import tree_flatten
+
+    return tree_flatten(tree)[1]
+
+
+def tree_bits_equal(a, b) -> bool:
+    from repro_torch.models.params import tree_flatten
+
+    pa, la = tree_flatten(a)
+    pb, lb = tree_flatten(b)
+    return pa == pb and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def phase_train_main_path(seed: int):
+    """olmo-1b trains at its published widths (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch import KernelInputError
+    from repro_torch.train import (OptimizerConfig, TrainConfig,
+                                   init_train_state, make_train_step,
+                                   train_state_to_device)
+
+    cfg = get_config("olmo_1b")
+    b, s = TRAIN_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = init_train_state(cfg, gen, device="cuda")
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    step = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                                total_steps=50),
+                           TrainConfig(remat="block"))
+    data = SyntheticLM(cfg, DataConfig(seq_len=s, global_batch=b, seed=seed))
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in data.batch(0).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    launches = model_kernel_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(launches.values()):
+        raise AssertionError(f"the train step launched a model kernel: "
+                             f"{launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses {losses}")
+    flops = train_flops(cfg, b, s)
+    warm = min(walls[1:])
+    prof = profile_device(lambda: step(state, batch), steps=1,
+                          shares=TRAIN_KERNEL_KINDS, top=12)
+    card = card_line()
+    print(f"train olmo-1b {b} x {s}: step {walls[0] * 1e3:.1f} ms cold, "
+          f"{warm * 1e3:.1f} ms warm, {b * s / warm:.0f} tokens/s, "
+          f"{flops['total'] / warm / 1e12:.1f} TFLOP/s, peak "
+          f"{peak_gb:.2f} GB", flush=True)
+    print(card, flush=True)
+    emit("train_main_path", model=cfg.name, params=n_params,
+         param_dtype=cfg.param_dtype, dtype=cfg.dtype, remat="block",
+         batch=[b, s], steps=TRAIN_STEPS, losses=losses,
+         step_ms=[w * 1e3 for w in walls], step_cold_ms=walls[0] * 1e3,
+         step_warm_ms=warm * 1e3, tokens_per_s_warm=b * s / warm,
+         tokens_per_s_cold=b * s / walls[0], model_flops=flops,
+         model_tflops_per_s=flops["total"] / warm / 1e12,
+         share_of_bf16_peak=flops["total"] / warm / PEAK_BF16_PER_S,
+         peak_memory_gb=peak_gb, kernel_launches=launches,
+         profile_step=prof, card=card)
+
+    # EAGER suspension at full width: from the same start, two steps, a
+    # snapshot of the whole state, the state dropped from the card and
+    # restored, two more steps; against four uninterrupted steps.
+    tmp = Path(tempfile.mkdtemp(prefix="train-ckpt-"))
+    try:
+        store = CheckpointStore(str(tmp), keep=1)
+        start = state
+        x = start
+        for _ in range(2):
+            x, _ = step(x, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = store.save("olmo", 7, x)
+        save_s = time.perf_counter() - t0
+        nbytes = Path(path).stat().st_size
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(x))
+        held = torch.cuda.memory_allocated()
+        x = state = None  # the last references: no garbage collection
+        dropped = held - torch.cuda.memory_allocated()
+        if dropped < state_bytes:
+            raise AssertionError(f"dropping the state freed {dropped} bytes "
+                                 f"of its {state_bytes}")
+        t0 = time.perf_counter()
+        restored_step, tree = store.restore("olmo")
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        x = train_state_to_device(tree, "cuda")
+        torch.cuda.synchronize()
+        to_device_s = time.perf_counter() - t0
+        del tree
+        for _ in range(2):
+            x, _ = step(x, batch)
+        resumed = x
+        x = start
+        start = None
+        for _ in range(4):
+            x, _ = step(x, batch)
+        torch.cuda.synchronize()
+        equal = tree_bits_equal(resumed, x)
+        if restored_step != 7 or not equal:
+            raise AssertionError(f"resumed run != uninterrupted (step "
+                                 f"{restored_step}, equal {equal})")
+        emit("train_suspend_resume", snapshot_bytes=nbytes, save_s=save_s,
+             restore_read_s=read_s, restore_to_device_s=to_device_s,
+             state_bytes=state_bytes, device_bytes_freed=dropped,
+             bitwise_equal=True,
+             deterministic_algorithms=False, dir_free_bytes=shutil.disk_usage(
+                 tmp).free)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del x, resumed
+
+    # The kernel wrappers refuse gradients on the card.
+    q = torch.randn((1, 2, 256, 128), device="cuda",
+                    dtype=torch.bfloat16).requires_grad_(True)
+    try:
+        flash_attention_cuda(q, q, q, scale=0.125)
+    except KernelInputError:
+        pass
+    else:
+        raise AssertionError("flash_attention_cuda took an input that "
+                             "requires grad")
+    with torch.no_grad():
+        flash_attention_cuda(q, q, q, scale=0.125)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"step_warm_ms": warm * 1e3, "tokens_per_s": b * s / warm}
+
+
+def phase_gang_main_path(seed: int):
+    """The gang runtime runs real training jobs on the card under HFSP,
+    its virtual clusters on K1 and P (see the module docstring).
+    Returns K1's and P's launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import ClusterSpec, HFSPConfig, HFSPScheduler
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.runtime import GangRuntime, MLJob
+    from repro_torch.train import (OptimizerConfig, TrainConfig,
+                                   init_train_state, make_train_step)
+
+    cluster = ClusterSpec(num_machines=1, map_slots_per_machine=2,
+                          reduce_slots_per_machine=0)
+    jobs = [MLJob(i, dataclasses.replace(get_smoke(name), dtype="float32"),
+                  total_steps=steps, steps_per_quantum=2, arrival_time=arr,
+                  seq_len=64, global_batch=8, seed=seed + i, name=name)
+            for i, (name, steps, arr) in enumerate(GANG_JOBS)]
+    tmp = tempfile.mkdtemp(prefix="gang-")
+    try:
+        sch = HFSPScheduler(cluster, HFSPConfig(sample_set_size=1,
+                                                vc_backend="torch"))
+        reset_counts()
+        rtm = GangRuntime(cluster, sch, jobs, CheckpointStore(tmp),
+                          device="cuda")
+        t0 = time.perf_counter()
+        rep = rtm.run(max_wall_s=120)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = des_counts()
+        kernels = model_kernel_launches()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_des_counts("gang hfsp", counts)
+    st = rep["stats"]
+    if sorted(rep["sojourn"]) != list(range(len(jobs))):
+        raise AssertionError(f"gang: completed {sorted(rep['sojourn'])}")
+    if not (st["offloads"] >= 1 and st["restores"] >= 1):
+        raise AssertionError(f"gang: HFSP suspended nothing: {st}")
+    if any(kernels.values()):
+        raise AssertionError(f"gang: a model kernel launched: {kernels}")
+    for job in jobs:
+        step = make_train_step(job.cfg, OptimizerConfig(
+            warmup_steps=5, total_steps=job.total_steps),
+            TrainConfig(remat="none"))
+        state = init_train_state(
+            job.cfg, torch.Generator(device="cuda").manual_seed(job.seed),
+            device="cuda")
+        data = SyntheticLM(job.cfg, DataConfig(
+            seq_len=job.seq_len, global_batch=job.global_batch,
+            seed=job.seed))
+        for i in range(job.total_steps):
+            state, _ = step(state, {k: torch.from_numpy(v).to("cuda")
+                                    for k, v in data.batch(i).items()})
+        if not tree_bits_equal(rtm.rt[job.job_id].state, state):
+            raise AssertionError(f"gang: {job.name}'s final state != the "
+                                 "same steps run straight through")
+    mean = rep["mean_sojourn"]
+    print(f"gang hfsp: sojourns {rep['sojourn']}, mean {mean:.3f} s, wall "
+          f"{wall:.3f} s, offloads {st['offloads']}, restores "
+          f"{st['restores']}, launches K1 {counts['k1_launches']}, P "
+          f"{counts['project_launches']}", flush=True)
+    emit("gang_main_path", policy="hfsp", machines=1, map_slots=2,
+         jobs=[{"name": j.name, "steps": j.total_steps, "arrival_s":
+                j.arrival_time, "quantum_s": rtm.rt[j.job_id].quantum_times}
+               for j in jobs],
+         sojourn_s=rep["sojourn"], mean_sojourn_s=mean, wall_s=wall,
+         stats=st, final_params_equal_straight_run=True,
+         events=[list(e) for e in rep["events"]], **counts)
+    return counts
+
+
+def phase_ml_workload():
+    """The ml-workload preset's three cells (40 ML jobs on 8 machines)
+    through run_scenario on the card, torch virtual clusters against
+    numpy's.  Returns the hfsp cell's launches."""
+    from repro_torch.scenarios import presets
+    from repro_torch.scenarios.runner import run_scenario
+
+    specs = dict(presets.get_preset("ml-workload").expand())
+    out, hfsp = {}, None
+    for cid, spec in specs.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        got = run_scenario(spec.override(**{"scheduler.vc_backend": "torch"}),
+                           device="cuda")
+        torch.cuda.synchronize()
+        torch_s = time.perf_counter() - t0
+        counts = des_counts()
+        t0 = time.perf_counter()
+        want = run_scenario(spec.override(**{"scheduler.vc_backend": "numpy"}),
+                            device="cuda")
+        numpy_s = time.perf_counter() - t0
+        g, w = ({k: v for k, v in r.items() if k not in ("spec", "wall_s")}
+                for r in (got, want))
+        if g != w:
+            raise AssertionError(f"ml-workload {cid}: torch report != numpy: "
+                                 f"{[k for k in g if g[k] != w[k]]}")
+        if g["jobs_completed"] != spec.workload.num_jobs or g["jobs_lost"]:
+            raise AssertionError(f"ml-workload {cid}: incomplete {g}")
+        if spec.scheduler.policy == "hfsp":
+            check_des_counts("ml-workload hfsp", counts)
+            hfsp = counts
+        out[cid] = {"mean_sojourn_s": g["mean_sojourn_s"], "torch_wall_s":
+                    torch_s, "numpy_wall_s": numpy_s, **counts}
+    emit("ml_workload", jobs=40, machines=8, reports_equal=True, cells=out)
+    return hfsp
+
+
 def run_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2889,6 +3234,15 @@ def main() -> int:
     k2["launches_by_path"] = {"olmo-1b": k2["launches"],
                               "zamba2-2.7b": zamba_launches["k2"]}
     k2["launches"] += zamba_launches["k2"]
+    run_phase("train_main_path", phase_train_main_path, args.seed)
+    gang = run_phase("gang_main_path", phase_gang_main_path, args.seed)
+    ml = run_phase("ml_workload", phase_ml_workload)
+    # HFSP's virtual clusters run K1 and P in the gang runtime and in
+    # ml-workload's hfsp cell too.
+    for entry, key in ((k1, "k1_launches"), (kp, "project_launches")):
+        entry["launches_by_path"]["gang hfsp"] = gang[key]
+        entry["launches_by_path"]["ml-workload hfsp"] = ml[key]
+        entry["launches"] = sum(entry["launches_by_path"].values())
     emit("done", total_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [k1, k2, k3, k4, kp]}), flush=True)
     print(card, flush=True)

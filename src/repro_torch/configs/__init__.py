@@ -14,6 +14,7 @@ from repro_torch.configs.base import (
     SHAPES,
     ModelConfig,
     ShapeConfig,
+    input_specs,
     reduced,
     shape_applicable,
 )
@@ -71,6 +72,7 @@ __all__ = [
     "ShapeConfig",
     "get_config",
     "get_smoke",
+    "input_specs",
     "reduced",
     "shape_applicable",
 ]

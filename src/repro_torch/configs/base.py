@@ -4,8 +4,9 @@
 One :class:`ModelConfig` instance fully describes an architecture; the
 model code (:mod:`repro_torch.models`) builds init/apply functions from
 it.  Field names, defaults and :func:`reduced` are the reference's, so a
-config of either package describes the same model.  ``input_specs`` (the
-dry-run's shape stand-ins) is not ported yet (ROADMAP Queue 1).
+config of either package describes the same model.  ``input_specs`` gives
+the dry-run's shape stand-ins as tensors on the ``meta`` device (shape and
+dtype, no storage) where the reference gives ``jax.ShapeDtypeStruct``.
 
 Each ported architecture gets a module in :mod:`repro_torch.configs`
 exposing ``CONFIG`` (exact published hyper-parameters) and ``SMOKE``
@@ -226,6 +227,39 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
             "run only for SSM/hybrid families (DESIGN.md)"
         )
     return True, ""
+
+
+def input_specs(
+    cfg: ModelConfig, shape: ShapeConfig, *, per_host_batch: int | None = None
+) -> dict[str, torch.Tensor]:
+    """Stand-ins for every model input on the ``meta`` device (no
+    allocation), with the reference's shapes and dtypes.  Modality
+    frontends are stubs: ``[vlm]``/``[audio]`` entries receive precomputed
+    patch/frame embeddings."""
+    b = per_host_batch or shape.global_batch
+    s = shape.seq_len
+    # VLM: patch embeddings occupy the front of the sequence, so the text
+    # token budget is seq_len - num_patches (total length stays exact).
+    s_text = s - cfg.num_patches if cfg.family == "vlm" else s
+    i32 = torch.int32
+    act = cfg.activation_dtype()
+
+    def spec(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": spec((b, s_text), i32)}
+        if shape.kind == "train":
+            # VLM loss covers text positions only; labels match text length.
+            specs["labels"] = spec((b, s_text), i32)
+        if cfg.family == "vlm":
+            specs["patch_embeds"] = spec((b, cfg.num_patches, cfg.d_model),
+                                         act)
+        if cfg.family == "encdec":
+            specs["frame_embeds"] = spec((b, cfg.num_frames, cfg.d_model), act)
+        return specs
+    # decode: one new token against a cache of seq_len
+    return {"tokens": spec((b, 1), i32), "positions": spec((b,), i32)}
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

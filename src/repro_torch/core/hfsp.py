@@ -24,7 +24,7 @@ naive composition causes suspend/resume thrash):
 
 The scheduler is pure decision logic: it runs unmodified under the
 discrete-event simulator (:mod:`repro_torch.core.simulator`, the paper's Mumak
-analogue) and under the gang runtime (not ported yet).
+analogue) and under the gang runtime (:mod:`repro_torch.runtime.gang`).
 
 Performance notes (incremental scheduler-state engine)
 ------------------------------------------------------

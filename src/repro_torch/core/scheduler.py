@@ -7,8 +7,8 @@ scheduler object runs unmodified under
 
 * :mod:`repro_torch.core.simulator` — the discrete-event simulator (the paper's
   Mumak analogue), and
-* the gang-scheduling runtime (the paper's Amazon-cluster analogue; not
-  ported yet, ROADMAP.md Queue 1 item 6).
+* the gang-scheduling runtime (the paper's Amazon-cluster analogue,
+  :mod:`repro_torch.runtime.gang`), which runs real training jobs.
 
 The executor exposes the physical state through the read-only
 :class:`ClusterView` protocol; schedulers keep their own per-job bookkeeping

@@ -1,0 +1,3 @@
+from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticLM
+
+__all__ = ["DataConfig", "Prefetcher", "SyntheticLM"]

@@ -3,6 +3,8 @@ its plain PyTorch version, mirroring ``repro.kernels``."""
 
 import torch
 
+from repro_torch import KernelInputError
+
 #: Chunk lengths the chunked-scan kernels (K3, K4) are built for.
 CHUNKS = (16, 32, 64)
 
@@ -28,3 +30,16 @@ def aligned(x: torch.Tensor) -> torch.Tensor:
             s * size % 16 == 0 for s in x.stride()[:-1]):
         return x
     return x.clone(memory_format=torch.contiguous_format)
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would record through kernel ``name``.  The
+    kernels fill fresh outputs through ctypes, so their results carry no
+    ``grad_fn``, and the reference defines no backward for any of them: a
+    training step through one would drop every gradient upstream of it
+    without a word.  Under ``torch.no_grad()`` (serving, eval) they run."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise KernelInputError(
+            f"{name} has no backward (nor has the reference's kernel): it "
+            "refuses inputs that require grad while grad mode is on; train "
+            "through the plain route, or call it under torch.no_grad()")

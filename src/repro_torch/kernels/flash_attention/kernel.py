@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import KernelError
+from repro_torch.kernels import refuse_grad
 
 #: Kernel launches made by :func:`flash_attention_cuda` (one per call),
 #: on either route.
@@ -208,6 +209,7 @@ def flash_attention_cuda(q, k, v, *, scale: float, causal: bool = True,
     for bf16, the CUDA-core kernel for f32.  Returns ``(b, h, sq, hd)``,
     a view of a ``(b, sq, h, hd)`` tensor."""
     global launches, launches_tc
+    refuse_grad("flash_attention_cuda", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(
             f"flash_attention_cuda needs CUDA tensors, got {q.device}; the "

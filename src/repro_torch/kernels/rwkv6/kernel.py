@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import KernelError
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels import aligned as _aligned
 from repro_torch.kernels import chunk_tile as _tile
 
@@ -147,6 +148,7 @@ def rwkv6_cuda(r, k, v, w, u, s0, *, chunk: int = 64):
     arguments as :func:`rwkv6_plain`).  Returns ``(o, state)``: ``o`` is a
     ``(b, h, t, dv)`` view of a ``(b, t, h, dv)`` tensor in r's dtype."""
     global launches
+    refuse_grad("rwkv6_cuda", r, k, v, w, u, s0)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_cuda needs CUDA tensors, got {r.device}; "
                          "the plain version is rwkv6_plain")

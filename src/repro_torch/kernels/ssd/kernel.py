@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import KernelError
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels import aligned as _aligned
 from repro_torch.kernels import chunk_tile as _tile
 
@@ -147,6 +148,7 @@ def ssd_cuda(x, dt, a, B, C, s0, *, chunk: int = 64):
     arguments as :func:`ssd_plain`).  Returns ``(y, state)``: ``y`` is a
     ``(b, h, t, p)`` view of a ``(b, t, h, p)`` tensor in x's dtype."""
     global launches
+    refuse_grad("ssd_cuda", x, dt, a, B, C, s0)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_cuda needs CUDA tensors, got {x.device}; the "
                          "plain version is ssd_plain")

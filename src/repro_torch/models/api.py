@@ -1,5 +1,6 @@
 """Public model API of the port (``repro/models/api.py``): one entry point
-per model operation.  The serving engine goes through these.  The dense,
+per model operation.  The serving engine and the train step go through
+these.  The dense,
 ssm (rwkv6) and hybrid (zamba2) families are ported: every other family
 (encdec included) raises in :mod:`.transformer` and names the ROADMAP
 item that ports it.
@@ -12,6 +13,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.models.common import cross_entropy
 from repro_torch.models.params import ParamTree
 
 
@@ -47,6 +49,27 @@ def forward(
     return T.lm_forward(cfg, params, batch, use_flash=use_flash,
                         use_scan_kernel=use_scan_kernel,
                         unembed_last_only=unembed_last_only)
+
+
+def loss_fn(
+    cfg: ModelConfig,
+    params,
+    batch: dict,
+    *,
+    use_flash: bool = False,
+    aux_weight: float = 0.01,
+) -> tuple[torch.Tensor, dict]:
+    """Mean next-token cross-entropy plus ``aux_weight`` x the aux loss;
+    returns ``(total, {"loss", "ce", "aux"})`` as the reference does.
+    ``batch["labels"]`` is ``(b, s)`` integer."""
+    logits, aux = forward(cfg, params, batch, use_flash=use_flash)
+    labels = batch["labels"]
+    # VLM: logits cover [patches, text]; loss only on the text positions.
+    if cfg.family == "vlm":
+        logits = logits[:, cfg.num_patches:]
+    ce = cross_entropy(logits, labels)
+    total = ce + aux_weight * aux
+    return total, {"loss": total, "ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,

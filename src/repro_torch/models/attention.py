@@ -144,6 +144,16 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, *, layers: int,
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
+def kv_cache_specs(cfg: ModelConfig, batch: int, max_seq: int, *,
+                   layers: int) -> dict:
+    """The KV cache's stand-ins on the ``meta`` device (shape and dtype,
+    no storage), as :func:`init_kv_cache` would make it."""
+    shape = (layers, batch, max_seq, cfg.kv_heads, cfg.head_size)
+    dt = cfg.activation_dtype()
+    return {"k": torch.empty(shape, dtype=dt, device="meta"),
+            "v": torch.empty(shape, dtype=dt, device="meta")}
+
+
 def decode_attention_block(
     cfg: ModelConfig,
     p,

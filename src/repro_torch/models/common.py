@@ -169,7 +169,10 @@ def init_embed(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 
 def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["embedding"][tokens].to(cfg.activation_dtype())
+    # F.embedding, not indexing: its backward sums each row's grads in a
+    # fixed order, where indexing's (an accumulating index_put_) does not
+    # on the CPU, and the train step must give the same bits every run.
+    x = F.embedding(tokens, p["embedding"]).to(cfg.activation_dtype())
     # gemma-style sqrt(d) scaling by the factor rounded to the activation
     # dtype, as the reference multiplies by it.
     scale = torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
@@ -185,3 +188,19 @@ def unembed(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
         valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
         logits = torch.where(valid, logits, -1e30)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy, fp32 accumulation.
+
+    The reference picks the gold logit with a one-hot contraction so that
+    GSPMD keeps vocab-sharded logits sharded.  On one card there is no
+    vocab sharding to keep, and ``gather`` reads the same logit without a
+    (b, s, V) f32 one-hot (3.3 GB at olmo-1b's 4 x 4096 x 50304)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()

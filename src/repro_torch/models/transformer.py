@@ -10,7 +10,9 @@ the families ported so far:
 
 Parameters keep the reference's tree: each leaf under ``"layers"`` has a
 leading ``(L, ...)`` layer axis (the hybrid's ``"shared"`` block has
-none).  Layers run in a Python loop over views of that axis, not a scan.
+none).  Layers run in a Python loop over views of that axis, not a scan;
+with ``cfg.remat`` each layer body (the hybrid's mamba layer and shared
+block each) runs under ``torch.utils.checkpoint`` when autograd records.
 The moe, vlm and encdec families raise.
 
     params = init_lm(cfg, generator)
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rwkv as R
@@ -74,10 +77,32 @@ def _n_shared_applications(cfg: ModelConfig) -> int:
             if cfg.shared_attn_period else 0)
 
 
-def _layer_slice(tree, i: int) -> dict:
-    """Layer ``i`` of a stacked parameter tree, as views."""
-    return {k: _layer_slice(v, i) if not isinstance(v, torch.Tensor) else v[i]
-            for k, v in tree.items()}
+def _layers(tree, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked tree, as views: each ``(L, ...)`` leaf
+    is unbound once.  Under autograd one ``unbind`` stacks the layers'
+    grads once in its backward, where a select per layer (``v[i]``) would
+    each materialise a zero tensor the size of the whole stack."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = (torch.unbind(v, 0) if isinstance(v, torch.Tensor)
+                 else _layers(v, n))
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under activation rematerialisation when ``cfg.remat`` is set
+    and autograd records (the reference's ``jax.checkpoint`` around each
+    layer body): backward keeps only the layer's inputs and recomputes the
+    rest."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+
+    def run(*args, **kw):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -213,19 +238,24 @@ def _attn_stack_forward(cfg, params, x, *, use_flash):
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     flags = global_flags(cfg)
-    for i in range(cfg.num_layers):
-        x = _attn_layer(cfg, _layer_slice(params["layers"], i), x, positions,
-                        bool(flags[i]), use_flash=use_flash)
+    layer = _remat(_attn_layer, cfg)
+    for i, p_l in enumerate(_layers(params["layers"], cfg.num_layers)):
+        x = layer(cfg, p_l, x, positions, bool(flags[i]), use_flash=use_flash)
     return x
 
 
 def _rwkv_stack_forward(cfg, params, x, *, use_kernel):
     """Every layer starts from a zero state, as the reference's prefill."""
-    state = R.init_rwkv_state(cfg, x.shape[0], layers=cfg.num_layers,
-                              device=x.device)
-    for i in range(cfg.num_layers):
-        x, _ = _rwkv_layer(cfg, _layer_slice(params["layers"], i),
-                           _layer_slice(state, i), x, use_kernel=use_kernel)
+    L = cfg.num_layers
+    states = _layers(R.init_rwkv_state(cfg, x.shape[0], layers=L,
+                                       device=x.device), L)
+
+    def body(p_l, s_l, x):
+        return _rwkv_layer(cfg, p_l, s_l, x, use_kernel=use_kernel)[0]
+
+    layer = _remat(body, cfg)
+    for p_l, s_l in zip(_layers(params["layers"], L), states):
+        x = layer(p_l, s_l, x)
     return x
 
 
@@ -235,14 +265,19 @@ def _hybrid_stack_forward(cfg, params, x, *, use_flash, use_kernel):
     shared block runs after every ``shared_attn_period``-th layer."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    zero = _layer_slice(M.init_ssd_state(cfg, b, layers=1, device=x.device), 0)
+    zero = _layers(M.init_ssd_state(cfg, b, layers=1, device=x.device), 1)[0]
     period = cfg.shared_attn_period
-    for i in range(cfg.num_layers):
-        x, _ = _mamba_layer(cfg, _layer_slice(params["layers"], i), zero, x,
-                            use_kernel=use_kernel)
+
+    def mamba(p_l, x):
+        return _mamba_layer(cfg, p_l, zero, x, use_kernel=use_kernel)[0]
+
+    mamba_layer = _remat(mamba, cfg)
+    shared_layer = _remat(_shared_attn_block, cfg)
+    for i, p_l in enumerate(_layers(params["layers"], cfg.num_layers)):
+        x = mamba_layer(p_l, x)
         if period and (i + 1) % period == 0:
-            x = _shared_attn_block(cfg, params["shared"], x, positions,
-                                   use_flash=use_flash)
+            x = shared_layer(cfg, params["shared"], x, positions,
+                             use_flash=use_flash)
     return x
 
 
@@ -297,23 +332,24 @@ def lm_decode(
     reads no positions: its state carries them."""
     _check_family(cfg)
     x = embed_tokens(cfg, params["embed"], tokens)  # (b, 1, d)
+    layers = _layers(params["layers"], cfg.num_layers)
     if cfg.family == "ssm":
         states = []
-        for i in range(cfg.num_layers):
-            x, st = _rwkv_layer(cfg, _layer_slice(params["layers"], i),
-                                _layer_slice(cache, i), x, use_ref=True)
+        for p_l, s_l in zip(layers, _layers(cache, cfg.num_layers)):
+            x, st = _rwkv_layer(cfg, p_l, s_l, x, use_ref=True)
             states.append(st)
         new_cache = {k: torch.stack([st[k] for st in states])
                      for k in ("S", "shift", "cmix_shift")}
     elif cfg.family == "hybrid":
-        x, new_cache = _hybrid_decode(cfg, params, x, positions, cache)
+        x, new_cache = _hybrid_decode(cfg, params, layers, x, positions,
+                                      cache)
     else:
         flags = global_flags(cfg)
         ks, vs = [], []
-        for i in range(cfg.num_layers):
+        for i, p_l in enumerate(layers):
             x, k_l, v_l = _decode_attn_layer(
-                cfg, _layer_slice(params["layers"], i), x, positions,
-                cache["k"][i], cache["v"][i], bool(flags[i]),
+                cfg, p_l, x, positions, cache["k"][i], cache["v"][i],
+                bool(flags[i]),
             )
             ks.append(k_l)
             vs.append(v_l)
@@ -323,7 +359,7 @@ def lm_decode(
     return logits, new_cache
 
 
-def _hybrid_decode(cfg, params, x, positions, cache):
+def _hybrid_decode(cfg, params, layers, x, positions, cache):
     """The hybrid's decode: every mamba layer steps its state through the
     sequential scan (t = 1) with its conv tail; the shared block decodes
     after every ``shared_attn_period``-th layer against KV slot
@@ -331,10 +367,9 @@ def _hybrid_decode(cfg, params, x, positions, cache):
     period = cfg.shared_attn_period
     shared = params["shared"]
     states, ks, vs = [], [], []
-    for i in range(cfg.num_layers):
+    for i, p_l in enumerate(layers):
         s_l = {k: cache[k][i] for k in ("ssm", "conv_x", "conv_B", "conv_C")}
-        x, st = _mamba_layer(cfg, _layer_slice(params["layers"], i), s_l, x,
-                             use_ref=True)
+        x, st = _mamba_layer(cfg, p_l, s_l, x, use_ref=True)
         states.append(st)
         if period and (i + 1) % period == 0:
             app = (i + 1) // period - 1

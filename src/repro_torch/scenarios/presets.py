@@ -4,9 +4,7 @@ A copy of ``repro.scenarios.presets``: the same presets with the same
 cell ids and spec hashes.  Each preset is a
 :class:`~repro_torch.scenarios.spec.SweepSpec` factory; the registry maps
 the name you pass to ``python -m repro_torch.scenarios run`` to the sweep
-it expands into.  ``ml-workload`` expands like the others, but running
-its cells raises ``NotImplementedError`` until the port has the ML-job
-substrate (:mod:`repro_torch.scenarios.runner`).
+it expands into.
 
 Register project-specific presets with :func:`register_preset`::
 

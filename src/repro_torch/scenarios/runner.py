@@ -34,14 +34,8 @@ from repro_torch.workload import (
     fb_dataset,
     fb_scaled_dataset,
     job_class,
+    ml_dataset,
 )
-
-#: Workload kinds this port does not materialize yet, and the ROADMAP
-#: item (Queue 1) that brings each.
-_LATER_KINDS = {
-    "ml": "ROADMAP.md Queue 1 item 6 (ML-job substrate)",
-}
-
 
 def build_workload(spec: ScenarioSpec) -> tuple[list[JobSpec], dict[int, str]]:
     """Jobs + class_of for the spec's workload axis."""
@@ -62,6 +56,8 @@ def build_workload(spec: ScenarioSpec) -> tuple[list[JobSpec], dict[int, str]]:
             num_machines=num_hosts,
             spec=wspec,
         )
+    elif w.kind == "ml":
+        jobs, class_of = ml_dataset(seed=w.seed, num_jobs=w.num_jobs)
     elif w.kind == "trace":
         from repro_torch.scenarios.trace import load_trace
 
@@ -70,11 +66,6 @@ def build_workload(spec: ScenarioSpec) -> tuple[list[JobSpec], dict[int, str]]:
             class_of = {
                 j.job_id: job_class(len(j.map_tasks)) for j in jobs
             }
-    elif w.kind in _LATER_KINDS:
-        raise NotImplementedError(
-            f"workload kind {w.kind!r} is not ported yet; it comes with "
-            f"{_LATER_KINDS[w.kind]}"
-        )
     else:  # pragma: no cover - WorkloadAxis validates
         raise ValueError(f"unknown workload kind {w.kind!r}")
     if w.map_only:

@@ -5,6 +5,7 @@ from repro_torch.workload.fb import (
     fb_dataset,
     fb_scaled_dataset,
     job_class,
+    ml_dataset,
 )
 
 __all__ = [
@@ -14,4 +15,5 @@ __all__ = [
     "fb_dataset",
     "fb_scaled_dataset",
     "job_class",
+    "ml_dataset",
 ]

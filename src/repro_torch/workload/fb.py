@@ -282,6 +282,77 @@ def fb_scaled_dataset(
     return jobs, class_of
 
 
+# ---------------------------------------------------------------------------
+# TPU-adaptation workload: jobs are ML train/serve runs (DESIGN.md §2)
+# ---------------------------------------------------------------------------
+#: (arch, kind, quanta, seconds-per-quantum, state_GB) — step times derived
+#: from the §Roofline compute terms of the assigned architectures (see
+#: EXPERIMENTS.md); state bytes = params + optimizer (train) or KV (serve).
+ML_JOB_TEMPLATES = [
+    ("olmo-1b", "train", 200, 2.1, 14.6),
+    ("olmo-1b", "serve", 30, 1.2, 3.0),
+    ("gemma2-2b", "train", 150, 3.9, 29.3),
+    ("starcoder2-3b", "train", 120, 5.6, 44.0),
+    ("rwkv6-1.6b", "train", 100, 2.5, 23.0),
+    ("granite-moe-3b-a800m", "train", 150, 1.9, 38.0),
+    ("zamba2-2.7b", "train", 100, 4.3, 39.0),
+    ("whisper-base", "train", 60, 0.6, 1.0),
+    ("command-r-35b", "train", 400, 38.0, 420.0),
+    ("llama4-scout-17b-a16e", "train", 300, 19.0, 1290.0),
+    ("llava-next-34b", "serve", 80, 7.3, 80.0),
+    ("command-r-35b", "serve", 60, 9.0, 90.0),
+]
+
+
+def ml_dataset(
+    seed: int = 0,
+    num_jobs: int = 40,
+    mean_interarrival: float = 30.0,
+    gang_slots: int = 16,
+) -> tuple[list[JobSpec], dict[int, str]]:
+    """Jobs = ML runs; tasks = step quanta executable on any gang slot.
+
+    A job's MAP phase holds its step quanta (size = quanta x sec/quantum,
+    cluster-width independent); there is no REDUCE phase.  ``state_bytes``
+    drives the EAGER-preemption (HBM->host offload) cost model.
+    """
+    rng = np.random.default_rng(seed)
+    jobs: list[JobSpec] = []
+    class_of: dict[int, str] = {}
+    t = 0.0
+    for job_id in range(num_jobs):
+        arch, kind, quanta, sec, state_gb = ML_JOB_TEMPLATES[
+            int(rng.integers(len(ML_JOB_TEMPLATES)))
+        ]
+        t += float(rng.exponential(mean_interarrival))
+        quanta = max(1, int(quanta * rng.uniform(0.5, 1.5)))
+        tasks = tuple(
+            TaskSpec(
+                job_id=job_id,
+                phase=Phase.MAP,
+                index=i,
+                duration=float(sec),
+                input_hosts=(),
+                state_bytes=int(state_gb * (1 << 30) / gang_slots),
+            )
+            for i in range(quanta)
+        )
+        jobs.append(
+            JobSpec(
+                job_id=job_id,
+                arrival_time=t,
+                map_tasks=tasks,
+                reduce_tasks=(),
+                name=f"{arch}-{kind}-{job_id}",
+            )
+        )
+        total = quanta * sec
+        class_of[job_id] = (
+            "small" if total < 300 else "medium" if total < 3000 else "large"
+        )
+    return jobs, class_of
+
+
 def fb_cluster(num_machines: int = 100) -> ClusterSpec:
     """The paper's Amazon cluster: 4 MAP + 2 REDUCE slots per node."""
     return ClusterSpec(

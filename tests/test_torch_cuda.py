@@ -64,7 +64,12 @@ that has only the port's dependencies:
   tests/test_torch_vcluster.py);
 * one accel batch of the sweep worker (``run_worker(compute="accel")``)
   on the card: one K1 launch per step of the hfsp batch, and the stored
-  reports equal (wall aside) to a direct run with K1's plain version.
+  reports equal (wall aside) to a direct run with K1's plain version;
+* the model kernels' wrappers (K2, K3, K4) refuse inputs that require
+  grad while grad mode is on (``KernelInputError``: they have no
+  backward) and run under ``torch.no_grad()``, launching once;
+* a train step of each ported family's SMOKE config on the card launches
+  no model kernel, and two steps from one state give the same bits.
 """
 
 import dataclasses
@@ -535,3 +540,66 @@ def test_worker_accel_batch_runs_on_card(cuda, tmp_path):
         want = json.loads(json.dumps(want))  # as the store holds it
         got = {k: v for k, v in stored[cid].items() if k != "wall_s"}
         assert got == {k: v for k, v in want.items() if k != "wall_s"}
+
+
+# ---------------------------------------------------------------------------
+# Training: the kernels refuse gradients; the train step on the card
+# ---------------------------------------------------------------------------
+def _kernel_call(name, device):
+    """(the wrapper's module, a call of the wrapper on inputs of which
+    the first requires grad) for model kernel ``name``."""
+    if name == "flash_attention":
+        q, k, v = _qkv(0, 1, 2, 2, 128, 128, 64, device, torch.bfloat16)
+        q.requires_grad_(True)
+        return K, lambda: K.flash_attention_cuda(q, k, v, scale=0.125)
+    if name == "rwkv6":
+        r, k, v, w, u, s0 = _rwkv(0, 1, 2, 128, 64, 2.0, device)
+        r.requires_grad_(True)
+        return K3, lambda: K3.rwkv6_cuda(r, k, v, w, u, s0)
+    x, dt, a, B, C, s0 = _ssd(0, 1, 2, 128, 64, 64, 0.0, device)
+    x.requires_grad_(True)
+    return K4, lambda: K4.ssd_cuda(x, dt, a, B, C, s0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_attention", "rwkv6", "ssd"])
+def test_kernel_wrappers_refuse_grad_on_card(cuda, name):
+    from repro_torch import KernelInputError
+
+    mod, call = _kernel_call(name, cuda)
+    before = mod.launches
+    with pytest.raises(KernelInputError, match="no backward"):
+        call()
+    assert mod.launches == before
+    with torch.no_grad():
+        out = call()
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    first = out[0] if isinstance(out, tuple) else out
+    assert not first.requires_grad and bool(torch.isfinite(first).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["olmo_1b", "rwkv6_1b6", "zamba2_2b7"])
+def test_train_step_on_card(cuda, name):
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models.params import tree_flatten
+    from repro_torch.train import (OptimizerConfig, TrainConfig,
+                                   init_train_state, make_train_step)
+
+    cfg = configs.get_smoke(name)
+    state = init_train_state(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    step = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                                total_steps=50),
+                           TrainConfig(remat="block"))
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in SyntheticLM(
+        cfg, DataConfig(seq_len=96, global_batch=4)).batch(0).items()}
+    before = (K.launches, K3.launches, K4.launches)
+    a, metrics = step(state, batch)
+    b, _ = step(state, batch)
+    torch.cuda.synchronize()
+    assert (K.launches, K3.launches, K4.launches) == before
+    assert np.isfinite(float(metrics["loss"]))
+    assert all(torch.equal(x, y) for x, y in zip(tree_flatten(a)[1],
+                                                 tree_flatten(b)[1]))
