@@ -19,8 +19,9 @@ script exits non-zero:
 3. the accel path: the 4 seeds x 4 policies x 4 error alphas = 64-cell
    matrix on the full paper FB workload (100 jobs, 100 machines, 400 map
    and 200 reduce slots) through ``run_cells_accel(device="cuda")``,
-   cold and warm, then once more with the plain water-fill, which must
-   give the same summaries; every job completes and hfsp and srpt beat
+   cold (each cell synthesized on the host, as users call it), then
+   warm and once more with the plain water-fill, both handed the cold
+   run's cells (``cells=``), which must give the same summaries; every job completes and hfsp and srpt beat
    fifo on mean sojourn at alpha 0 on every seed; one K1 launch per hfsp
    step by counter (and by name in a profile of the hfsp batch, in
    phase 9);
@@ -34,7 +35,8 @@ script exits non-zero:
    run field for field (wall time and spec aside), and hfsp beats fifo
    on mean sojourn; then the scheduler-overhead stress cell of
    benchmarks/bench_sched_overhead.py (``fb_scaled``, 5000 jobs on 1000
-   machines, hfsp, 20000 events) with torch and numpy virtual clusters,
+   machines, hfsp, stopped at 10000 of the benchmark's 20000 events)
+   with torch and numpy virtual clusters,
    each timed on its own: equal completions and passes, events/s and the
    mean and p99 pass times of both.  On each cell, K1's and the projection kernel's launch
    counters are > 0 and equal to the calls counted at the
@@ -61,9 +63,9 @@ script exits non-zero:
    accel_batch=32)`` into a sqlite store runs its 30 hfsp cells in one
    batch (K1 launches by counter = the batch's steps, 512 a chunk) and
    its fair cell in a spawned attempt, each batch report equal (wall
-   aside) to a direct ``run_cells_accel`` of the same specs; (b) ``python
-   -m repro_torch.scenarios run paper-estimation-error-disciplines
-   --workers 2`` with ``REPRO_VC_BACKEND=torch``, alone on the host,
+   aside) to a direct ``run_cells_accel`` of the same specs and cells;
+   (b) ``python -m repro_torch.scenarios run
+   paper-estimation-error-disciplines --workers 4`` with ``REPRO_VC_BACKEND=torch``, alone on the host,
    exits 0; its spawned attempts, summed (each writes its counters
    through the sweep hook's ``launch_counts``), launch K1 and the
    projection kernel > 0 times and exactly as often as their virtual
@@ -75,7 +77,7 @@ script exits non-zero:
    runs the projection kernel and no K1, and paper-fb's hfsp cell (at
    most 14) launches nothing, each report equal to numpy's and each
    timed against numpy in turns after an untimed run (numpy, auto,
-   auto, numpy, numpy, auto);
+   auto, numpy);
 8. the live service (``service_main_path``): paper-fb's cluster and 100
    FB jobs (``paper_fb_base()``) through ``repro_torch.service`` in this
    process, as users run it: ``LiveEngine.create(policy="hfsp",
@@ -104,11 +106,15 @@ script exits non-zero:
    atol 4e-3 with rtol 1.6e-2), on the shapes of tests/test_kernels.py,
    three windows, a window over eight 128-row kv tiles, a non-causal call,
    olmo-1b's (4, 16, 4096, 128), starcoder2-3b's GQA (1, 24 -> 2, 2048,
-   128) and head dim 80 (a small GQA case and zamba2-2.7b's (4, 32, 4096,
-   80)), with bitwise reruns and both launch counters; at the three model
-   shapes, outputs of deliberately wrong attention (a kv tile dropped,
-   the diagonal key dropped past row 1024, the last kv tile dropped for
-   the last 128 rows of one head) must fail the bf16 tolerance;
+   128), head dim 80 (a small GQA case and zamba2-2.7b's (4, 32, 4096,
+   80)), granite-moe-3b's (4, 24 -> 8, 4096, 64) and llava-next-34b's
+   (1, 56 -> 8, 4096, 128), with bitwise reruns and both launch counters;
+   besides the elementwise bounds, the relative error of every output row
+   of every head must stay within ``FLASH_ROW_REL`` (1e-4 f32, 1.6e-2
+   bf16); at the five model shapes, outputs of deliberately wrong
+   attention (a kv tile dropped, the diagonal key dropped past row 1024,
+   the last kv tile dropped for the last 128 rows of one head) must fail
+   both the bf16 tolerance and the row bound, with the margins printed;
 11. the serving path: olmo-1b at its published widths (16 layers, d_model
    2048, vocab 50304; random weights from ``--seed``) through
    ``make_prefill_step(use_flash=True, last_token_only=True)`` on 4 x 4096
@@ -200,8 +206,9 @@ script exits non-zero:
     their wrappers refuse grads); step ms cold and warm, tokens/s, peak
     memory, the model FLOPs of a step (``train_flops``) as TFLOP/s and
     as a share of the bf16 peak, and a profile of one step; then the
-    EAGER suspension at full width: from the fifth step's state, two
-    steps, ``CheckpointStore.save`` of the whole state (~14 GB), the
+    EAGER suspension at published widths, cut to 2 of 16 layers (the
+    snapshot's disk round trip took ~50 s at full depth): from a fresh
+    state, two steps, ``CheckpointStore.save`` of the whole state, the
     state dropped from the card, restored and two more steps, bitwise
     equal to four uninterrupted steps from the same state (save and
     restore seconds and bytes); and ``flash_attention_cuda`` refuses a
@@ -221,7 +228,44 @@ script exits non-zero:
     ``run_scenario(device="cuda")`` with torch and with numpy virtual
     clusters: reports equal (wall aside), every job completes, and the
     hfsp cell launches K1 and P as often as it calls them;
-25. the ``{"kernels": [...]}`` line (K1, K2, K3, K4 and the projection
+25. the MoE serving path (``moe_serve_main_path``), after the gang
+    runtime's and ml-workload's: granite-moe-3b-a800m at its published
+    widths and depth (32 layers, d_model 1536, 24 heads of 64 -> 8 kv
+    heads, 40 experts top-8 of d_ff 512, vocab 49155 padded to 49168,
+    tied; 3,298,813,440 parameters, random from ``--seed``) through
+    ``serve_main_path`` with ``use_flash=True``: 32 tensor-core K2
+    launches per 4 x 4096 prefill, by counter and by name, cold and warm,
+    ``greedy_generate`` for 4 x (64 + 32), profiles of a prefill and a
+    decode step; then one more prefill with the routing recorded
+    (capacity 4096 per expert, the share of choices dropped by layer) and
+    profiles of a prefill and a decode step by the MoE layer's parts
+    (scatter ``index_add_``, gather ``index_select``, ``cumsum``, the
+    top-k's ``sort``, ``one_hot``, the expert ``bmm``s) and the layer's
+    whole share of device time;
+26. MoE cross-checks in f32 on the same weights, 1 x 1024
+    (``moe_serve_crosscheck``): prefill logits with K2's f32 route
+    against K2's plain version (atol 1e-3; where a routing decision of
+    the plain run went another way within the f32 noise, the plain run
+    is routed as the kernel's run was, and the count is printed), and the
+    first MoE layer on its input in that run, on the card against the
+    same call on the CPU: the same experts and kept set, outputs within
+    1e-4 of max |out|, and the count of tokens whose top-8 margin is
+    below 1e-6;
+27. the other configs (``families_serve``), each at its published widths
+    (``FAMILIES`` says what was cut and why), its weights freed before
+    the next one's: gemma2-2b (nothing cut; 2 x 8192, the plain route),
+    whisper-base (nothing cut; 4 x 1500 frame embeddings, 4 x 448
+    decoder tokens, the plain route), command-r-35b (2 of 40 layers; 4 x
+    4096, K2 2 per prefill), llava-next-34b (2 of 60 layers; 2880 patch
+    embeddings and 1216 text tokens, K2 2 per prefill) and
+    llama4-scout-17b-a16e (2 of 48 layers; 4 x 4096, top-1 with the
+    shared expert, K2 2 per prefill): prefill cold and warm, K2's
+    launches per prefill by counter, peak memory, ``greedy_generate`` for
+    4 x (8 + 8) and finite prefill and decode logits;
+28. K2 at granite-moe-3b's head dim 64 (4, 24 -> 8, 4096, 64) beside its
+    bound, its plain version and ``F.scaled_dot_product_attention``, with
+    the same fields as phase 13;
+29. the ``{"kernels": [...]}`` line (K1, K2, K3, K4 and the projection
     kernel), the card's name and power limit, and the final ``{"ok":
     true, ...}`` line.
 
@@ -229,8 +273,9 @@ Each main path (the accel matrix, the wide rows, the discrete-event
 path's two cells, the scenario worker's batch, the CLI sweep's hfsp
 cell, the "auto" latch's cell, the live service's session, olmo-1b
 serving, rwkv6 serving, zamba2 serving, olmo-1b training, the gang
-runtime, ml-workload's cells) runs with every kernel's launch count set
-to 0 just before it and read just after.
+runtime, ml-workload's cells, granite-moe-3b serving, each config of
+``families_serve``) runs with every kernel's launch count set to 0 just
+before it and read just after.
 """
 
 from __future__ import annotations
@@ -367,6 +412,52 @@ def reset_counts() -> None:
 
 def drop_wall(results: list[dict]) -> list[dict]:
     return [{k: v for k, v in r.items() if k != "wall_s"} for r in results]
+
+
+#: The cells ``synthesize_cell`` made while ``recording_cells`` was on, by
+#: spec.  A spec is synthesized once, on the host, by the entry point that
+#: first runs it; every later run of it (warm, plain, packed, captured,
+#: direct) is handed the recorded cell through ``run_cells_accel(cells=)``.
+SYNTHESIZED: dict[str, dict] = {}
+
+
+def spec_key(spec) -> str:
+    return json.dumps(spec.to_dict(), sort_keys=True, default=str)
+
+
+@contextlib.contextmanager
+def recording_cells():
+    """Record in ``SYNTHESIZED`` every cell the entry points synthesize
+    while the context lasts; yields a list whose one item becomes the
+    host seconds they spent synthesizing."""
+    from repro_torch.accel import sweep_exec
+
+    spent = [0.0]
+
+    def wrap(original):
+        def synthesize_cell(spec):
+            t0 = time.perf_counter()
+            cell = original(spec)
+            spent[0] += time.perf_counter() - t0
+            SYNTHESIZED[spec_key(spec)] = cell
+            return cell
+        return synthesize_cell
+
+    with patched(sweep_exec, "synthesize_cell", wrap):
+        yield spent
+
+
+def cells_of(specs) -> list[dict]:
+    """The cells of ``specs``, from ``SYNTHESIZED`` where recorded."""
+    from repro_torch.accel import synthesize_cell
+
+    out = []
+    for s in specs:
+        key = spec_key(s)
+        if key not in SYNTHESIZED:
+            SYNTHESIZED[key] = synthesize_cell(s)
+        out.append(SYNTHESIZED[key])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -533,28 +624,27 @@ def check_matrix(specs, results, n_jobs):
 
 
 def phase_main_path():
-    from repro_torch.accel import run_cells_accel, synthesize_cell
+    from repro_torch.accel import run_cells_accel
     from repro_torch.accel import waterfill as wf
 
     specs = main_matrix()
     assert len(specs) == 64
-    t0 = time.perf_counter()
-    for s in specs:
-        synthesize_cell(s)
-    synth_s = time.perf_counter() - t0
-
     reset_counts()
     t0 = time.perf_counter()
-    cold = run_cells_accel(specs, device="cuda")
+    with recording_cells() as synth:
+        cold = run_cells_accel(specs, device="cuda")
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
+    synth_s = synth[0]
     launches = wf.launches
 
+    # Warm and plain: the same call handed the cells the cold run made.
+    cells = cells_of(specs)
     t0 = time.perf_counter()
-    warm = run_cells_accel(specs, device="cuda")
+    warm = run_cells_accel(specs, device="cuda", cells=cells)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    plain = run_cells_accel(specs, device="cuda", impl="torch")
+    plain = run_cells_accel(specs, device="cuda", impl="torch", cells=cells)
 
     if drop_wall(cold) != drop_wall(warm):
         raise AssertionError("warm rerun differs from cold run")
@@ -575,9 +665,9 @@ def phase_main_path():
 
     stepping = {}
     for klass, impl in (("plain", "none"), ("hfsp", None)):
-        packed = cell_step.pack_cells([
-            synthesize_cell(s) for s in specs
-            if (s.scheduler.policy == "hfsp") == (klass == "hfsp")])
+        packed = cell_step.pack_cells(cells_of([
+            s for s in specs
+            if (s.scheduler.policy == "hfsp") == (klass == "hfsp")]))
         params = cell_step.params_from_numpy(packed, "cuda")
         t0 = time.perf_counter()
         final = cell_step.run_packed(params, impl=impl)
@@ -598,9 +688,9 @@ def phase_main_path():
         raise AssertionError(f"main path: {launches} water-fill launches, "
                              f"want one per hfsp step ({steps_run})")
     emit("main_path", cells=len(specs), jobs_per_cell=100,
-         cold_s=cold_s, warm_s=warm_s,
+         cold_s=cold_s, warm_cells_given_s=warm_s,
          cold_cells_per_s=len(specs) / cold_s,
-         warm_cells_per_s=len(specs) / warm_s,
+         warm_cells_given_cells_per_s=len(specs) / warm_s,
          synthesize_s=synth_s, run_packed=stepping,
          waterfill_launches=launches,
          max_hfsp_steps=max_hfsp_steps, hfsp_cell_steps=hfsp_steps,
@@ -625,11 +715,13 @@ def phase_wide_rows():
     ]
     reset_counts()
     t0 = time.perf_counter()
-    res = run_cells_accel(specs, device="cuda")
+    with recording_cells():
+        res = run_cells_accel(specs, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = wf.launches
-    plain = run_cells_accel(specs, device="cuda", impl="torch")
+    plain = run_cells_accel(specs, device="cuda", impl="torch",
+                            cells=cells_of(specs))
     if launches <= 0:
         raise AssertionError("wide path launched no water-fill kernel")
     if drop_wall(res) != drop_wall(plain):
@@ -647,11 +739,11 @@ def captured_calls(specs, n_steps: int):
     """Water-fill inputs of the packed batch of ``specs`` as the cell step
     hands them to K1, one pair ``(caps_m, caps_r, ws, slots_m, slots_r,
     live_m, live_r)`` per step, over its first ``n_steps`` steps."""
-    from repro_torch.accel import cell_step, synthesize_cell
+    from repro_torch.accel import cell_step
     from repro_torch.accel import waterfill as wf
 
     params = cell_step.params_from_numpy(
-        cell_step.pack_cells([synthesize_cell(s) for s in specs]), "cuda")
+        cell_step.pack_cells(cells_of(specs)), "cuda")
     state = cell_step._to_tensors(
         cell_step.init_state({k: v.cpu().numpy() for k, v in params.items()}),
         params["arrival"].device)
@@ -737,7 +829,7 @@ def k1_timing(pairs) -> dict:
 
 
 def phase_kernel_timing(main_launches: int, wide_specs):
-    from repro_torch.accel import cell_step, synthesize_cell
+    from repro_torch.accel import cell_step
     from repro_torch.accel import waterfill as wf
 
     hfsp_specs = [s for s in main_matrix() if s.scheduler.policy == "hfsp"]
@@ -761,7 +853,7 @@ def phase_kernel_timing(main_launches: int, wide_specs):
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         cell_step.run_packed(cell_step.params_from_numpy(
-            cell_step.pack_cells([synthesize_cell(s) for s in hfsp_specs]),
+            cell_step.pack_cells(cells_of(hfsp_specs)),
             "cuda"))
         torch.cuda.synchronize()
     by_name = sum(ev.count for ev in prof.key_averages()
@@ -869,8 +961,9 @@ DES_POLICIES = (
     ("psbs", {"scheduler.policy": "psbs"}),
 )
 #: The scheduler-overhead stress cell of benchmarks/bench_sched_overhead.py:
-#: fb_scaled, 5000 jobs on 1000 machines, hfsp, 20000 events.
-STRESS_JOBS, STRESS_MACHINES, STRESS_EVENTS = 5000, 1000, 20000
+#: fb_scaled, 5000 jobs on 1000 machines, hfsp; stopped at 10000 events
+#: (the benchmark's budget is 20000, cut for the script's time limit).
+STRESS_JOBS, STRESS_MACHINES, STRESS_EVENTS = 5000, 1000, 10000
 
 
 def project_rows(rng, b, w, *, inf_frac=0.1, zero_w=0.1):
@@ -1298,7 +1391,9 @@ def phase_project_kernel_vs_plain(des_launches: dict):
 LATCH_CELL = ("paper-cluster-size",
               "cluster.num_machines=10,scheduler.policy=hfsp")
 #: The order of the timed runs of each latch cell, after an untimed one.
-LATCH_ORDER = ("numpy", "auto", "auto", "numpy", "numpy", "auto")
+LATCH_ORDER = ("numpy", "auto", "auto", "numpy")
+#: Spawned workers of the CLI's sweep (the card's host has 8 cores).
+CLI_WORKERS = 4
 
 
 @contextlib.contextmanager
@@ -1384,8 +1479,9 @@ def phase_scenarios_cli():
     worker_store = tmp / "worker.sqlite"
     reset_counts()
     t0 = time.perf_counter()
-    summary = run_worker(sweep, worker_store, compute="accel",
-                         accel_batch=32, device="cuda")
+    with recording_cells():
+        summary = run_worker(sweep, worker_store, compute="accel",
+                             accel_batch=32, device="cuda")
     torch.cuda.synchronize()
     worker_s = time.perf_counter() - t0
     k1_worker = wf.launches
@@ -1404,7 +1500,8 @@ def phase_scenarios_cli():
                              f"one per hfsp step ({steps_run})")
     batch_s = sum(stored[cid]["wall_s"] for cid in hfsp)
     t0 = time.perf_counter()
-    direct = run_cells_accel([specs[cid] for cid in hfsp], device="cuda")
+    direct = run_cells_accel([specs[cid] for cid in hfsp], device="cuda",
+                             cells=cells_of([specs[cid] for cid in hfsp]))
     direct_s = time.perf_counter() - t0
     for cid, want in zip(hfsp, drop_wall(direct)):
         if not json_equal(drop_wall([stored[cid]]), [want]):
@@ -1429,7 +1526,7 @@ def phase_scenarios_cli():
     hook = tmp / "hook.json"
     hook.write_text(json.dumps({"launch_counts": True,
                                 "state_dir": str(witness)}))
-    with cli_process("run", name, "--workers", "2", "--store",
+    with cli_process("run", name, "--workers", str(CLI_WORKERS), "--store",
                      str(run_store),
                      env={"REPRO_VC_BACKEND": "torch",
                           "_REPRO_SWEEP_TEST_HOOK": str(hook)}) as started:
@@ -1469,7 +1566,8 @@ def phase_scenarios_cli():
     check_des_counts(f"{name} {cell}", hfsp_cell)
     if not json_equal(drop_wall([report]), drop_wall([want[cell]])):
         raise AssertionError(f"{cell}: in-process report != numpy's")
-    emit("scenarios_cli_run", preset=name, cells=len(want), workers=2,
+    emit("scenarios_cli_run", preset=name, cells=len(want),
+         workers=CLI_WORKERS,
          cli_wall_s=cli_s, numpy_inline_s=numpy_inline_s,
          reports_equal=True, printed_tail=out.splitlines()[-1],
          cli_attempts=len(per_attempt), cli_counts=cli_counts,
@@ -1758,6 +1856,8 @@ FLASH_CASES = (
     ("starcoder2-3b", 1, 24, 2, 2048, 128, 512, 512, None, True),
     ("hd80", 1, 4, 2, 96, 80, 32, 32, None, True),
     ("zamba2-2.7b", 4, 32, 32, 4096, 80, 512, 512, None, True),
+    ("granite-moe-3b", 4, 24, 8, 4096, 64, 512, 512, None, True),
+    ("llava-next-34b", 1, 56, 8, 4096, 128, 512, 512, None, True),
 )
 #: dtype -> the (atol, rtol) pairs K2 must meet against its plain
 #: version, each elementwise: f32 sums in another order; bf16 rounds P
@@ -1768,6 +1868,16 @@ FLASH_CASES = (
 #: rtol 1.6e-2 (two bf16 steps).
 FLASH_TOL = {torch.float32: ((2e-5, 2e-5),),
              torch.bfloat16: ((2e-2, 0.0), (4e-3, 1.6e-2))}
+#: dtype -> the bound on the relative error of each output row of each
+#: head, ``|got_r - want_r| / |want_r|`` over the head dim
+#: (``row_rel_ratio``).  A fault confined to a few rows of one head, whose
+#: outputs are small late in a causal sequence, moves few elements by
+#: little in absolute terms; this bound holds each row to its own scale.
+#: On the CPU the bf16 arithmetic of the tensor-core route (P rounded
+#: before P V, the output rounded once) stays below 4.8e-3 per row at head
+#: dims 64, 80 and 128, and every fault of ``WRONG_KERNELS`` reaches 0.31
+#: or more in the head it hits (scripts/k2_bf16_tolerance_study.py).
+FLASH_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 #: dtype -> the K2 kernel that takes it (its name in the profiles).
 KERNEL_OF = {torch.float32: "flash_fwd", torch.bfloat16: "flash_tc"}
 SERVE_TOL = 1e-3  # f32 logits, kernel vs plain and prefill vs decode route
@@ -1783,6 +1893,24 @@ def tol_ratio(got, want, tols) -> float:
     diff = (got.float() - want.float()).abs()
     return max((diff / (atol + rtol * want.float().abs())).max().item()
                for atol, rtol in tols)
+
+
+def row_rel_ratio(got, want, rel: float) -> tuple[float, list[int]]:
+    """The largest relative error of an output row over the head dim,
+    ``|got_r - want_r| / |want_r|``, as a share of ``rel``, and the
+    (batch, head) where it lies: at most 1 where every row of every head
+    holds.  A row whose wanted output is all zeros (no key to attend to)
+    has no scale of its own and is left to the elementwise bounds."""
+    errs = []
+    for g, w in zip(got.unbind(0), want.unbind(0)):  # a batch row at a time
+        w = w.float()
+        diff = (g.float() - w).norm(dim=-1)
+        norm = w.norm(dim=-1)
+        errs.append(torch.where(norm > 0, diff / norm, 0.0).amax(dim=-1))
+    per_head = torch.stack(errs)  # (b, h)
+    worst = int(per_head.argmax())
+    return (per_head.max().item() / rel,
+            [worst // per_head.shape[1], worst % per_head.shape[1]])
 
 
 def wrong_attention(q, k, v, scale, drop) -> torch.Tensor:
@@ -1866,45 +1994,66 @@ def phase_flash_kernel_vs_plain(seed: int):
                 raise AssertionError(f"{name}: kernel rerun not bitwise equal")
             err = (got.float() - want.float()).abs().max().item()
             ratio = tol_ratio(got, want, tols)
+            rel = FLASH_ROW_REL[dtype]
+            row_ratio, row_at = row_rel_ratio(got, want, rel)
             if not ratio <= 1.0:
                 raise AssertionError(
                     f"{name} {dtype}: kernel != plain version (max abs err "
                     f"{err}, {ratio} of the (atol, rtol) bound {tols})")
+            if not row_ratio <= 1.0:
+                raise AssertionError(
+                    f"{name} {dtype}: a row of (batch, head) {row_at} is "
+                    f"{row_ratio} of the relative bound {rel} from the plain "
+                    "version")
             wrong = {}
             if dtype == torch.bfloat16 and s >= 2048:
                 for fault, drop in WRONG_KERNELS.items():
                     bad = wrong_attention(q, k, v, kw["scale"], drop)
+                    bad_row, bad_at = row_rel_ratio(bad, want, rel)
                     wrong[fault] = {
                         "max_abs_err": (bad.float() - want.float()).abs()
                         .max().item(),
                         "tol_ratio": tol_ratio(bad, want, tols),
                         "tol_ratio_atol_2e-2_only":
-                            tol_ratio(bad, want, tols[:1])}
-                    if not wrong[fault]["tol_ratio"] > 1.0:
+                            tol_ratio(bad, want, tols[:1]),
+                        "row_rel_ratio": bad_row, "row_rel_at": bad_at}
+                    if not (wrong[fault]["tol_ratio"] > 1.0
+                            and bad_row > 1.0):
                         raise AssertionError(
-                            f"{name}: the bf16 tolerance {tols} lets a "
-                            f"kernel with a fault through ({fault})")
+                            f"{name}: the bf16 tolerance {tols} or the row "
+                            f"bound {rel} lets a kernel with a fault "
+                            f"through ({fault}): {wrong[fault]}")
+                    print(f"K2 {name}: fault {fault!r} fails the elementwise "
+                          f"bound {wrong[fault]['tol_ratio']:.3g}x and the "
+                          f"row bound {bad_row:.3g}x", flush=True)
                     del bad
             emit("flash_kernel_vs_plain", case=name,
                  dtype=str(dtype).replace("torch.", ""),
                  kernel=KERNEL_OF[dtype], shape=[b, h, kvh, s, hd],
                  window=window, causal=causal, max_abs_err=err,
-                 tolerances=tols, tol_ratio=ratio, rerun_bitwise_equal=True,
+                 tolerances=tols, tol_ratio=ratio, row_rel_bound=rel,
+                 row_rel_ratio=row_ratio, rerun_bitwise_equal=True,
                  **({"faulty_kernels_vs_plain": wrong} if wrong else {}))
 
 
 @contextlib.contextmanager
+def patched(module, name: str, wrap):
+    """``module.<name>`` replaced by ``wrap(original)`` while the context
+    lasts: another route, or an instrument, for one run of a path."""
+    original = getattr(module, name)
+    setattr(module, name, wrap(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
 def plain_route(ops, name: str, plain):
     """Route the model's path through ``ops.<name>`` (a model-layout
     adapter's dispatch to a kernel) to the kernel's plain version ``plain``
     (on the card) while the context lasts, for the cross-check against the
     kernel."""
-    dispatch = getattr(ops, name)
-    setattr(ops, name, plain)
-    try:
-        yield
-    finally:
-        setattr(ops, name, dispatch)
+    return patched(ops, name, lambda _: plain)
 
 
 def names_of(kernel) -> tuple[str, ...]:
@@ -1918,11 +2067,13 @@ def profile_device(fn, steps: int, shares: dict, top: int = 6):
     device's busy share of their wall, and for each ``share: kernel`` of
     ``shares`` the share of device time of the kernels whose name holds
     one of ``names_of(kernel)`` and (``launches_by_kernel``) the launches
-    per step of each such name."""
+    per step of each such name.  Only the device's activity is recorded:
+    kernels' names and times are all this reads, and recording every host
+    op as well slows the host-bound steps it times."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
@@ -2025,7 +2176,7 @@ def serve_main_path(phase: str, arch: str, seed: int, kernels: dict,
         if per_prefill[tag] != [expected] * 2:
             raise AssertionError(f"{tag.upper()} launches per prefill "
                                  f"{per_prefill[tag]}, expected {expected}")
-    if logits.shape != (b, 1, cfg.vocab_size) or \
+    if logits.shape != (b, 1, cfg.padded_vocab) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
     if out.shape != (4, 96) or not torch.equal(out[:, :64], prompts) or \
@@ -2839,6 +2990,9 @@ def phase_flash_timing_hd80(seed: int, serve_launches: int,
 # ---------------------------------------------------------------------------
 TRAIN_BATCH = (4, 4096)  # the reference's train_4k length
 TRAIN_STEPS = 5
+#: Layers of olmo-1b (of 16) in the suspension's snapshot round trip: its
+#: ~14 GB at full depth took ~50 s of disk on the card's host.
+SUSPEND_LAYERS = 2
 #: The gang cell: (arch, total steps, arrival s) at SMOKE widths in f32,
 #: quanta of 2 steps, 64 x 8 tokens a step.  One machine with two map
 #: slots: a granted quantum waits in its slot until the runtime's next
@@ -2964,13 +3118,21 @@ def phase_train_main_path(seed: int):
          peak_memory_gb=peak_gb, kernel_launches=launches,
          profile_step=prof, card=card)
 
-    # EAGER suspension at full width: from the same start, two steps, a
-    # snapshot of the whole state, the state dropped from the card and
-    # restored, two more steps; against four uninterrupted steps.
+    # EAGER suspension at published widths, cut to SUSPEND_LAYERS layers
+    # (the snapshot's disk round trip is the cost, not the card): from one
+    # start, two steps, a snapshot of the whole state, the state dropped
+    # from the card and restored, two more steps; against four
+    # uninterrupted steps.
+    state = None
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cfg, num_layers=SUSPEND_LAYERS)
+    step = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                                total_steps=50),
+                           TrainConfig(remat="block"))
     tmp = Path(tempfile.mkdtemp(prefix="train-ckpt-"))
     try:
         store = CheckpointStore(str(tmp), keep=1)
-        start = state
+        start = init_train_state(cfg, gen, device="cuda")
         x = start
         for _ in range(2):
             x, _ = step(x, batch)
@@ -3007,7 +3169,9 @@ def phase_train_main_path(seed: int):
         if restored_step != 7 or not equal:
             raise AssertionError(f"resumed run != uninterrupted (step "
                                  f"{restored_step}, equal {equal})")
-        emit("train_suspend_resume", snapshot_bytes=nbytes, save_s=save_s,
+        emit("train_suspend_resume", layers=cfg.num_layers,
+             published_layers=get_config("olmo_1b").num_layers,
+             snapshot_bytes=nbytes, save_s=save_s,
              restore_read_s=read_s, restore_to_device_s=to_device_s,
              state_bytes=state_bytes, device_bytes_freed=dropped,
              bitwise_equal=True,
@@ -3146,6 +3310,389 @@ def phase_ml_workload():
     return hfsp
 
 
+# ---------------------------------------------------------------------------
+# The other model families: granite-moe-3b serving (its MoE layer and K2 at
+# head dim 64), the five other configs, and K2 timed at head dim 64
+# ---------------------------------------------------------------------------
+#: The granite-moe-3b tree (``param_count()`` says 3,298,693,632: it
+#: leaves out the norms and the 13 padded vocab rows).
+GRANITE_PARAMS = 3_298_813_440
+#: The MoE layer's parts by the aten op whose launches make each of them
+#: (within the layer: the embedding's lookup is an ``index_select`` too).
+MOE_OPS = {
+    "scatter": "aten::index_add_",
+    "gather": "aten::index_select",
+    "cumsum": "aten::cumsum",
+    "topk": "aten::sort",
+    "one_hot": "aten::one_hot",
+    "expert_bmm": "aten::bmm",
+}
+#: (config, layers kept (None: all), prefill (b, text tokens), K2 launches
+#: per prefill, what was cut and why).
+FAMILIES = (
+    ("gemma2_2b", None, (2, 8192), 0,
+     "nothing cut; 2 x 8192 so the 4096 window binds on its 13 local "
+     "layers; its attention softcap keeps every layer on the plain route"),
+    ("whisper_base", None, (4, 448), 0,
+     "nothing cut; frame embeddings (4, 1500, 512) bf16 from --seed stand "
+     "in for the conv frontend (a stub in both packages); the decoder "
+     "prefill is whisper's 448-token context; encdec attention is the "
+     "plain route"),
+    ("command_r_35b", 2, (4, 4096), 2,
+     "2 of 40 layers at published widths: 30.3 B parameters in f32 master "
+     "weights (121 GB) do not fit in 80 GB"),
+    ("llava_next_34b", 2, (1, 1216), 2,
+     "2 of 60 layers at published widths: 34 B parameters in f32 do not "
+     "fit in 80 GB; 2880 patch embeddings (bf16, from --seed, the vision "
+     "tower is a stub) and 1216 text tokens make 4096"),
+    ("llama4_scout_17b", 2, (4, 4096), 2,
+     "2 of 48 layers at published widths: 2.20 B parameters a layer (8.8 "
+     "GB in f32) do not fit 48 deep in 80 GB"),
+)
+
+
+def recording(out: list):
+    """A wrapper of ``moe.route`` that appends each call's routing."""
+    def wrap(route):
+        def run(cfg, p, x):
+            r = route(cfg, p, x)
+            out.append(r)
+            return r
+        return run
+    return wrap
+
+
+def moe_profile(fn) -> dict:
+    """Device time of one ``fn()`` call, the MoE layer's share of it (each
+    call of ``moe_ffn`` under a ``record_function`` range) and the share
+    of each of its parts by ``MOE_OPS``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import transformer as T
+
+    def traced(moe_ffn):
+        def run(*args):
+            with record_function("moe_ffn"):
+                return moe_ffn(*args)
+        return run
+
+    torch.cuda.synchronize()
+    with patched(T, "moe_ffn", traced), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.key != "moe_ffn")
+    if not total_us > 0:
+        return {"device_ms": "not measured"}
+    cpu = [ev for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CPU]
+
+    def in_moe(ev) -> bool:
+        parent = ev.cpu_parent
+        while parent is not None:
+            if parent.name == "moe_ffn":
+                return True
+            parent = parent.cpu_parent
+        return False
+
+    layers = [ev for ev in cpu if ev.name == "moe_ffn"]
+    moe_us = sum(ev.device_time_total for ev in layers)
+    parts = {kind: sum(ev.device_time_total for ev in cpu
+                       if ev.name == op and in_moe(ev)) / total_us
+             for kind, op in MOE_OPS.items()}
+    return {"device_ms": total_us / 1e3, "moe_layers": len(layers),
+            "moe_share_of_device": moe_us / total_us,
+            "moe_part_share_of_device": parts,
+            "moe_parts_share_of_moe": sum(parts.values()) * total_us / moe_us
+            if moe_us else "not measured"}
+
+
+def phase_moe_serve_main_path(seed: int):
+    """granite-moe-3b-a800m at its published widths and depth through
+    ``serve_main_path`` (32 tensor-core K2 launches per prefill), then one
+    more warm 4 x 4096 prefill with its routing recorded (capacity, the
+    share of choices dropped) and profiles of a prefill and a decode step
+    by the MoE layer's parts."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import init_cache, moe
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    cfg, params, launches, per_prefill = serve_main_path(
+        "moe_serve_main_path", "granite_moe_3b", seed, k2_counts(fk, 32),
+        use_flash=True)
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"granite-moe-3b parameters: {n_params}", flush=True)
+    if n_params != GRANITE_PARAMS:
+        raise AssertionError(f"granite-moe-3b tree holds {n_params} "
+                             f"parameters, expected {GRANITE_PARAMS}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 4096), generator=gen,
+                           device="cuda")
+    prefill = make_prefill_step(cfg, use_flash=True, last_token_only=True)
+    routes: list = []
+    with patched(moe, "route", recording(routes)):
+        prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    capacity = sorted({r.capacity for r in routes})
+    dropped = [1.0 - r.keep.float().mean().item() for r in routes]
+    if len(routes) != cfg.num_layers or capacity != [4096]:
+        raise AssertionError(f"{len(routes)} MoE layers routed at capacity "
+                             f"{capacity}, expected {cfg.num_layers} at 4096")
+    del routes
+    prof_prefill = moe_profile(lambda: prefill(params, {"tokens": tokens}))
+    step = make_decode_step(cfg)
+    cache = init_cache(cfg, 4, 96, device="cuda")
+    pos = torch.full((4,), 63, dtype=torch.long, device="cuda")
+    decode_routes: list = []
+    with patched(moe, "route", recording(decode_routes)):
+        step(params, tokens[:, -1:], pos, cache)
+    torch.cuda.synchronize()
+    decode_dropped = [1.0 - r.keep.float().mean().item()
+                      for r in decode_routes]
+    prof_decode = moe_profile(lambda: step(params, tokens[:, -1:], pos,
+                                           cache))
+    emit("moe_serve_layer", model=cfg.name, experts=cfg.num_experts,
+         top_k=cfg.top_k, prefill_batch=[4, 4096], capacity=capacity[0],
+         dropped_share_mean=sum(dropped) / len(dropped),
+         dropped_share_by_layer=dropped,
+         decode_batch=4, decode_capacity=decode_routes[0].capacity,
+         decode_dropped_share_mean=sum(decode_dropped) / len(decode_dropped),
+         profile_warm_prefill=prof_prefill, profile_decode_step=prof_decode)
+    return cfg, params, launches, per_prefill
+
+
+def phase_moe_serve_crosscheck(cfg, params, seed: int):
+    """granite-moe-3b in f32 on the same weights, 1 x 1024: prefill logits
+    with K2's f32 route against K2's plain version (atol 1e-3), and the
+    first MoE layer on the card against the same call on the CPU."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import make_prefill_step
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen,
+                           device="cuda")
+    prefill = make_prefill_step(cfg32, use_flash=True)
+    inputs: list = []
+
+    def first_input(moe_ffn):
+        def run(cfg_, p, x):
+            if not inputs:
+                inputs.append(x.detach().clone())
+            return moe_ffn(cfg_, p, x)
+        return run
+
+    k2_routes: list = []
+    before, before_tc = fk.launches, fk.launches_tc
+    with patched(moe, "route", recording(k2_routes)), \
+            patched(T, "moe_ffn", first_input):
+        flash = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    if (fk.launches - before, fk.launches_tc) != (cfg.num_layers, before_tc):
+        raise AssertionError("f32 prefill did not run K2's f32 route in "
+                             "every layer")
+    plain_routes: list = []
+    with plain_route(fops, "flash_attention_bhsd", fk.flash_attention_plain), \
+            patched(moe, "route", recording(plain_routes)):
+        plain = prefill(params, {"tokens": tokens})
+    # A routing decision within the f32 noise of the attention can go
+    # another way in the plain run; the comparison of the kernel is then
+    # made with the plain run routed as the kernel's run was.
+    flipped = sum(int((a.idx != b.idx).sum()) + int((a.keep != b.keep).sum())
+                  for a, b in zip(k2_routes, plain_routes))
+    if flipped:
+        replay = iter(k2_routes)
+        with plain_route(fops, "flash_attention_bhsd",
+                         fk.flash_attention_plain), \
+                patched(moe, "route", lambda _: lambda *a: next(replay)):
+            plain = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    err_plain = (flash - plain).abs().max().item()
+    if not err_plain <= SERVE_TOL:
+        raise AssertionError(f"f32 granite prefill with K2 vs its plain "
+                             f"version: max abs err {err_plain} > "
+                             f"{SERVE_TOL}")
+
+    # The first MoE layer, card against CPU, on its input in that run.
+    x = inputs[0]
+    p0 = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    p0_cpu = {k: v.detach().cpu() for k, v in p0.items()}
+    with torch.no_grad():
+        out, aux = moe.moe_ffn(cfg32, p0, x)
+        r = moe.route(cfg32, p0, x)
+        out_cpu, aux_cpu = moe.moe_ffn(cfg32, p0_cpu, x.cpu())
+        r_cpu = moe.route(cfg32, p0_cpu, x.cpu())
+        probs = torch.softmax(x.reshape(-1, cfg.d_model).cpu()
+                              @ p0_cpu["router"], dim=-1)
+    top = probs.sort(dim=-1, descending=True).values
+    margin = top[:, cfg.top_k - 1] - top[:, cfg.top_k]
+    near_ties = int((margin < 1e-6).sum())
+    scale = out_cpu.abs().max().item()
+    err_moe = (out.cpu() - out_cpu).abs().max().item()
+    same_kept = torch.equal(r.keep.cpu(), r_cpu.keep)
+    same_idx = torch.equal(r.idx.cpu(), r_cpu.idx)
+    print(f"granite MoE layer 0, card vs CPU: max abs err {err_moe} (max "
+          f"|out| {scale}), same experts {same_idx}, same kept set "
+          f"{same_kept}, tokens with a top-{cfg.top_k} margin below 1e-6: "
+          f"{near_ties}", flush=True)
+    if not (same_kept and same_idx):
+        raise AssertionError(f"the MoE layer on the card keeps another set "
+                             f"than on the CPU ({near_ties} tokens within "
+                             "1e-6 of a tie)")
+    if not err_moe <= 1e-4 * scale:
+        raise AssertionError(f"MoE layer card vs CPU: max abs err {err_moe} "
+                             f"> 1e-4 x {scale}")
+    emit("moe_serve_crosscheck", dtype="float32", batch=[1, 1024],
+         logits_abs_max=flash[..., :cfg.vocab_size].abs().max().item(),
+         atol=SERVE_TOL,
+         k2_vs_plain_max_abs_err=err_plain,
+         routing_choices_differing_unpinned=flipped,
+         plain_run_routed_as_kernel_run=bool(flipped),
+         moe_layer_card_vs_cpu_max_abs_err=err_moe,
+         moe_layer_out_abs_max=scale, moe_layer_tol_share_of_max=1e-4,
+         moe_layer_same_experts=same_idx, moe_layer_same_kept_set=same_kept,
+         moe_layer_capacity=r.capacity,
+         moe_layer_dropped_share=1.0 - r_cpu.keep.float().mean().item(),
+         aux_card=aux.item(), aux_cpu=aux_cpu.item(),
+         tokens_top_k_margin_below_1e_6=near_ties)
+
+
+def family_serve(name: str, layers, shape, k2_per_prefill: int, cut: str,
+                 seed: int) -> tuple[str, int]:
+    """One config at its published widths (``layers`` deep when cut):
+    prefill cold and warm with K2's launches per prefill, then
+    ``greedy_generate`` for 4 requests of 8 prompt and 8 new tokens and
+    one decode step's logits.  Returns (the model's name, its K2
+    launches)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import init_cache, init_model, moe
+    from repro_torch.serve import (
+        greedy_generate,
+        make_decode_step,
+        make_prefill_step,
+    )
+
+    t_start = time.perf_counter()
+    cfg = get_config(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_model(cfg, gen, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    b, s = shape
+    act = cfg.activation_dtype()
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device="cuda")}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (b, cfg.num_patches, cfg.d_model), generator=gen,
+            device="cuda").to(act)
+    if cfg.family == "encdec":
+        batch["frame_embeds"] = torch.randn(
+            (b, cfg.num_frames, cfg.d_model), generator=gen,
+            device="cuda").to(act)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 8), generator=gen,
+                            device="cuda")
+    prefill = make_prefill_step(cfg, use_flash=True, last_token_only=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls, per_prefill, routes = [], [], []
+    for _ in range(2):  # cold, warm
+        before = (fk.launches, fk.launches_tc)
+        t0 = time.perf_counter()
+        with patched(moe, "route", recording(routes)):
+            logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_prefill.append([fk.launches - before[0],
+                            fk.launches_tc - before[1]])
+    moe_fields = {} if not routes else {
+        "moe_capacity": sorted({r.capacity for r in routes}),
+        "moe_dropped_share_mean": sum(
+            1.0 - r.keep.float().mean().item() for r in routes) / len(routes)}
+    del routes
+    out = greedy_generate(cfg, params, prompts, 8)
+    cache = init_cache(cfg, 4, 16, device="cuda")
+    step_logits, _ = make_decode_step(cfg)(
+        params, prompts[:, :1], torch.zeros(4, dtype=torch.long,
+                                            device="cuda"), cache)
+    torch.cuda.synchronize()
+    launches = fk.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = b * (s + cfg.num_patches if cfg.family == "vlm" else s)
+    if per_prefill != [[k2_per_prefill, k2_per_prefill]] * 2:
+        raise AssertionError(f"{name}: K2 launches per prefill (all, "
+                             f"tensor-core) {per_prefill}, expected "
+                             f"{k2_per_prefill} tensor-core each")
+    for what, x in (("prefill", logits), ("decode", step_logits)):
+        if x.shape != (b if what == "prefill" else 4, 1, cfg.padded_vocab) \
+                or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{name}: bad {what} logits "
+                                 f"{tuple(x.shape)}")
+    if out.shape != (4, 16) or not torch.equal(out[:, :8], prompts) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{name}: bad greedy output {tuple(out.shape)}")
+    emit("families_serve", model=cfg.name, family=cfg.family,
+         layers=cfg.num_layers, published_layers=get_config(name).num_layers,
+         reduced=cut, d_model=cfg.d_model, heads=[cfg.num_heads,
+                                                  cfg.kv_heads],
+         head_dim=cfg.head_size, params=n_params,
+         prefill_batch=[b, s], prefill_tokens=tokens,
+         prefill_cold_s=walls[0], prefill_warm_s=walls[1],
+         prefill_warm_tokens_per_s=tokens / walls[1],
+         k2_launches_per_prefill=per_prefill[0][1], k2_launches=launches,
+         generate=[4, 8, 8], peak_memory_gb=peak_gb, **moe_fields,
+         seconds=time.perf_counter() - t_start)
+    del params, cache, logits, step_logits, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg.name, launches
+
+
+def phase_families_serve(seed: int) -> dict:
+    """Every config of ``FAMILIES`` through the port, one after another,
+    each model's weights freed before the next one's are built.  Returns
+    K2's launches by model."""
+    return dict(family_serve(*entry, seed + i)
+                for i, entry in enumerate(FAMILIES))
+
+
+def phase_flash_timing_hd64(seed: int, serve_launches: int,
+                            per_prefill: int) -> dict:
+    """K2 at granite-moe-3b's attention call (4, 24 -> 8, 4096, 64) bf16:
+    its time beside its bound, its plain version and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    b, h, kvh, s, hd = 4, 24, 8, 4096, 64
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    q, k, v = flash_inputs(gen, b, h, kvh, s, hd, dtype)
+    kw = dict(scale=hd ** -0.5)
+    got = fk.flash_attention_cuda(q, k, v, **kw)
+    want = fk.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    max_err = (got.float() - want.float()).abs().max().item()
+    plain_ms = cuda_ms(lambda: fk.flash_attention_plain(q, k, v, **kw), 2)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True, scale=kw["scale"]), 10)
+    entry = {"shape": [b, h, kvh, s, hd], "dtype": "bfloat16",
+             "launches": serve_launches, "launches_per_prefill": per_prefill,
+             "max_abs_err": max_err, "plain_ms": plain_ms,
+             **flash_speed(fk, q, k, v, kw, library_ms, dtype)}
+    emit("flash_timing_hd64", **entry)
+    return entry
+
+
 def run_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3243,6 +3790,23 @@ def main() -> int:
         entry["launches_by_path"]["gang hfsp"] = gang[key]
         entry["launches_by_path"]["ml-workload hfsp"] = ml[key]
         entry["launches"] = sum(entry["launches_by_path"].values())
+    cfg, params, moe_launches, moe_per_prefill = run_phase(
+        "moe_serve_main_path", phase_moe_serve_main_path, args.seed)
+    run_phase("moe_serve_crosscheck", phase_moe_serve_crosscheck, cfg,
+              params, args.seed)
+    del params
+    torch.cuda.empty_cache()  # granite's weights are gone before the others'
+    family_launches = run_phase("families_serve", phase_families_serve,
+                                args.seed)
+    # K2 runs at head dim 64 on granite's prefill, and on the prefills of
+    # the three other configs whose attention takes it.
+    k2["granite_hd64"] = run_phase(
+        "flash_timing_hd64", phase_flash_timing_hd64, args.seed,
+        moe_launches["k2"], moe_per_prefill["k2"])
+    k2["launches_by_path"][cfg.name] = moe_launches["k2"]
+    k2["launches_by_path"].update(
+        {name: n for name, n in family_launches.items() if n})
+    k2["launches"] = sum(k2["launches_by_path"].values())
     emit("done", total_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [k1, k2, k3, k4, kp]}), flush=True)
     print(card, flush=True)

@@ -1,9 +1,8 @@
 """Architecture registry of the port: ``get_config(name)`` /
-``get_smoke(name)`` for the architectures ported so far (``ARCHS``).
+``get_smoke(name)`` / ``ARCHS`` list all 10 assigned architectures.
 
 The names are the reference's (``repro.configs``), dashed public ids
-included.  An architecture of the reference that is not ported yet raises
-and names the ROADMAP item that ports it.
+included; an unknown name raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -19,7 +18,18 @@ from repro_torch.configs.base import (
     shape_applicable,
 )
 
-ARCHS = ["olmo_1b", "rwkv6_1b6", "starcoder2_3b", "zamba2_2b7"]
+ARCHS = [
+    "olmo_1b",
+    "command_r_35b",
+    "gemma2_2b",
+    "starcoder2_3b",
+    "llava_next_34b",
+    "rwkv6_1b6",
+    "granite_moe_3b",
+    "llama4_scout_17b",
+    "whisper_base",
+    "zamba2_2b7",
+]
 
 _ALIASES = {
     "olmo-1b": "olmo_1b",
@@ -34,26 +44,11 @@ _ALIASES = {
     "zamba2-2.7b": "zamba2_2b7",
 }
 
-#: Architectures of the reference not ported yet -> the ROADMAP item.
-_NOT_PORTED = {
-    "command_r_35b": "ROADMAP Queue 1 item 7 (other model families)",
-    "gemma2_2b": "ROADMAP Queue 1 item 7 (gemma2's softcap and "
-                 "local/global layers)",
-    "llava_next_34b": "ROADMAP Queue 1 item 7 (vlm family)",
-    "granite_moe_3b": "ROADMAP Queue 1 item 7 (moe family)",
-    "llama4_scout_17b": "ROADMAP Queue 1 item 7 (moe family)",
-    "whisper_base": "ROADMAP Queue 1 item 7 (encdec family)",
-}
-
 
 def _module(name: str):
     mod = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    if mod in _NOT_PORTED:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet: {_NOT_PORTED[mod]}"
-        )
     if mod not in ARCHS:
-        raise KeyError(f"unknown architecture {name!r}; ported: {ARCHS}")
+        raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -8,9 +8,10 @@ config of either package describes the same model.  ``input_specs`` gives
 the dry-run's shape stand-ins as tensors on the ``meta`` device (shape and
 dtype, no storage) where the reference gives ``jax.ShapeDtypeStruct``.
 
-Each ported architecture gets a module in :mod:`repro_torch.configs`
-exposing ``CONFIG`` (exact published hyper-parameters) and ``SMOKE``
-(a reduced same-family config runnable on CPU in a test).
+Each of the 10 assigned architectures gets a module in
+:mod:`repro_torch.configs` exposing ``CONFIG`` (exact published
+hyper-parameters) and ``SMOKE`` (a reduced same-family config runnable on
+CPU in a test).
 """
 
 from __future__ import annotations

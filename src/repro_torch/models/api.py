@@ -1,9 +1,8 @@
 """Public model API of the port (``repro/models/api.py``): one entry point
-per model operation.  The serving engine and the train step go through
-these.  The dense,
-ssm (rwkv6) and hybrid (zamba2) families are ported: every other family
-(encdec included) raises in :mod:`.transformer` and names the ROADMAP
-item that ports it.
+per model operation, dispatched on ``cfg.family``: the encoder-decoder
+family (whisper) to :mod:`.encdec`, every other family (dense, vlm, moe,
+ssm, hybrid) to :mod:`.transformer`.  The serving engine, the train step
+and the gang runtime go through these.
 """
 
 from __future__ import annotations
@@ -12,6 +11,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models.common import cross_entropy
 from repro_torch.models.params import ParamTree
@@ -27,6 +27,8 @@ def init_model(cfg: ModelConfig, generator: torch.Generator | None = None,
     if generator.device.type != dev.type:
         raise ValueError(f"generator lies on {generator.device}, params are "
                          f"asked for on {dev}")
+    if cfg.family == "encdec":
+        return ParamTree(E.init_encdec(cfg, generator))
     return ParamTree(T.init_lm(cfg, generator))
 
 
@@ -40,12 +42,16 @@ def forward(
     unembed_last_only: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Prefill forward.  Returns (logits, aux_loss).  ``use_flash`` routes
-    the causal attention of the dense family and of the hybrid's shared
-    block to kernel K2, ``use_scan_kernel`` the ssm family's WKV scan to
-    kernel K3 and the hybrid's SSD scan to kernel K4 (the reference's
-    ``rwkv_time_mix(use_pallas=True)`` and ``ssd_block(use_pallas=True)``
-    routes, which its ``forward`` does not expose); both default to the
-    reference's default route."""
+    the causal attention of the dense, vlm and moe families and of the
+    hybrid's shared block to kernel K2, ``use_scan_kernel`` the ssm
+    family's WKV scan to kernel K3 and the hybrid's SSD scan to kernel K4
+    (the reference's ``rwkv_time_mix(use_pallas=True)`` and
+    ``ssd_block(use_pallas=True)`` routes, which its ``forward`` does not
+    expose); both default to the reference's default route.  The encdec family takes neither: its
+    attention is the plain route, as the reference's is."""
+    if cfg.family == "encdec":
+        return E.encdec_forward(cfg, params, batch,
+                                unembed_last_only=unembed_last_only)
     return T.lm_forward(cfg, params, batch, use_flash=use_flash,
                         use_scan_kernel=use_scan_kernel,
                         unembed_last_only=unembed_last_only)
@@ -74,6 +80,9 @@ def loss_fn(
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: str | torch.device = "cuda") -> dict:
+    if cfg.family == "encdec":
+        return E.init_encdec_cache(cfg, batch, max_seq,
+                                   resolve_device(device))
     return T.init_lm_cache(cfg, batch, max_seq, resolve_device(device))
 
 
@@ -84,4 +93,6 @@ def decode_step(
     positions: torch.Tensor,
     cache: dict,
 ) -> tuple[torch.Tensor, dict]:
+    if cfg.family == "encdec":
+        return E.encdec_decode(cfg, params, tokens, positions, cache)
     return T.lm_decode(cfg, params, tokens, positions, cache)

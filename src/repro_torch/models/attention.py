@@ -110,13 +110,21 @@ def mha(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of two operands in their promoted dtype, as
+    ``jnp.einsum`` promotes: whisper's cross-attention reads bf16 queries
+    against the keys of an f32 encoder output."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
 def _mha_dense(cfg, q, k, v, mask, scale):
-    scores = torch.einsum("bqhk,bshk->bhqs", q, k).float() * scale
+    scores = _einsum("bqhk,bshk->bhqs", q, k).float() * scale
     scores = softcap(scores, cfg.attn_softcap)
     mask_b = mask[None, None] if mask.ndim == 2 else mask[:, None]
     scores = torch.where(mask_b, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqs,bshk->bqhk", probs, v)
+    return _einsum("bhqs,bshk->bqhk", probs, v)
 
 
 def attention_block(cfg: ModelConfig, p, x: torch.Tensor,

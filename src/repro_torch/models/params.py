@@ -17,6 +17,10 @@ packages (the optimizer and the checkpoint format rely on it).
 :func:`from_reference` turns the reference's parameter tree, given as
 nested dicts of numpy arrays, into a :class:`ParamTree` in
 ``cfg.param_dtype``, so the port and ``repro`` compute the same thing.
+It walks any tree as it comes: every family's (the encdec family's
+``encoder``/``decoder`` stacks and ``enc_pos``/``dec_pos``, the moe
+family's ``layers.moe`` with its ``shared`` expert) or a subtree such
+as one MoE layer's.
 """
 
 from __future__ import annotations

@@ -1,19 +1,23 @@
-"""The causal LM (the port's copy of ``repro/models/transformer.py``) for
-the families ported so far:
+"""The unified causal LM (the port's copy of
+``repro/models/transformer.py``) covering the decoder-only families:
 
-* ``dense`` — olmo-1b, starcoder2-3b, and the dense flags of the others
-  (parallel residual, post-block norms, local/global layers);
-* ``ssm``   — rwkv6 (attention-free; :mod:`repro_torch.models.rwkv`);
+* ``dense``  — olmo-1b, command-r-35b (parallel residual), gemma2-2b
+  (local/global alternation + softcaps), starcoder2-3b (biases, plain MLP);
+* ``vlm``    — llava-next-34b (patch-embedding stub prepended to tokens);
+* ``moe``    — granite-moe (40e top-8), llama4-scout (16e top-1 + shared;
+  :mod:`repro_torch.models.moe`);
+* ``ssm``    — rwkv6 (attention-free; :mod:`repro_torch.models.rwkv`);
 * ``hybrid`` — zamba2 (a mamba2 stack, :mod:`repro_torch.models.ssd`, with
   ONE shared attention+MLP block applied after every
   ``shared_attn_period``-th layer).
+
+The encoder-decoder family (whisper) is :mod:`repro_torch.models.encdec`.
 
 Parameters keep the reference's tree: each leaf under ``"layers"`` has a
 leading ``(L, ...)`` layer axis (the hybrid's ``"shared"`` block has
 none).  Layers run in a Python loop over views of that axis, not a scan;
 with ``cfg.remat`` each layer body (the hybrid's mamba layer and shared
 block each) runs under ``torch.utils.checkpoint`` when autograd records.
-The moe, vlm and encdec families raise.
 
     params = init_lm(cfg, generator)
     logits, aux = lm_forward(cfg, params, batch)                (prefill)
@@ -45,21 +49,10 @@ from repro_torch.models.common import (
     init_norm,
     unembed,
 )
+from repro_torch.models.moe import init_moe, moe_ffn
 
-#: Families not ported yet -> the ROADMAP item that ports them.
-_NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 7 (other model families)",
-    "vlm": "ROADMAP Queue 1 item 7 (other model families)",
-    "encdec": "ROADMAP Queue 1 item 7 (other model families)",
-}
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"{_NOT_PORTED[cfg.family]}"
-        )
+#: The families whose layers are attention + MLP (or MoE) blocks.
+ATTN_FAMILIES = ("dense", "vlm", "moe")
 
 
 def global_flags(cfg: ModelConfig) -> np.ndarray:
@@ -111,7 +104,6 @@ def _remat(fn, cfg: ModelConfig):
 def init_lm(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random parameters of the LM as a nested dict, drawn from ``gen`` on
     ``gen.device``."""
-    _check_family(cfg)
     L, dev = cfg.num_layers, gen.device
     p: dict = {"embed": init_embed(cfg, gen), "final_norm": init_norm(cfg, dev)}
     if cfg.family == "ssm":  # rwkv6
@@ -136,6 +128,8 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> dict:
             "mlp": init_mlp(cfg, gen),
         }
         return p
+    if cfg.family not in ATTN_FAMILIES:
+        raise ValueError(f"init_lm does not handle family={cfg.family}")
     p["layers"] = {
         "ln1": init_norm(cfg, dev, layers=L),
         "attn": init_attention(cfg, gen, layers=L),
@@ -144,14 +138,27 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> dict:
     if cfg.post_block_norm:
         p["layers"]["post_ln1"] = init_norm(cfg, dev, layers=L)
         p["layers"]["post_ln2"] = init_norm(cfg, dev, layers=L)
-    p["layers"]["mlp"] = init_mlp(cfg, gen, layers=L)
+    if cfg.family == "moe":
+        p["layers"]["moe"] = init_moe(cfg, gen, layers=L)
+    else:
+        p["layers"]["mlp"] = init_mlp(cfg, gen, layers=L)
     return p
 
 
 # ---------------------------------------------------------------------------
 # Per-layer block bodies
 # ---------------------------------------------------------------------------
+def _ffn(cfg, p_l, h):
+    """The layer's MLP, or its MoE layer: (out, the MoE's aux loss or
+    None)."""
+    if cfg.family == "moe":
+        return moe_ffn(cfg, p_l["moe"], h)
+    return apply_mlp(cfg, p_l["mlp"], h), None
+
+
 def _attn_layer(cfg, p_l, x, positions, is_global, *, use_flash):
+    """One attention + MLP (or MoE) layer: (x, the MoE's aux loss or
+    None)."""
     h = apply_norm(cfg, p_l["ln1"], x)
     h = attention_block(cfg, p_l["attn"], h, positions, is_global,
                         use_flash=use_flash)
@@ -160,12 +167,12 @@ def _attn_layer(cfg, p_l, x, positions, is_global, *, use_flash):
     if cfg.parallel_residual:
         # command-r: attn and MLP read the same normed input.
         m = apply_mlp(cfg, p_l["mlp"], apply_norm(cfg, p_l["ln1"], x))
-        return x + h + m
+        return x + h + m, None
     x = x + h
-    m = apply_mlp(cfg, p_l["mlp"], apply_norm(cfg, p_l["ln2"], x))
+    m, aux = _ffn(cfg, p_l, apply_norm(cfg, p_l["ln2"], x))
     if cfg.post_block_norm:
         m = apply_norm(cfg, p_l["post_ln2"], m)
-    return x + m
+    return x + m, aux
 
 
 def _rwkv_layer(cfg, p_l, s_l, x, **scan):
@@ -210,38 +217,47 @@ def lm_forward(
     use_scan_kernel: bool = False,
     unembed_last_only: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """batch: {"tokens": (b, s)}.  Returns (logits (b, s, V), aux_loss
-    scalar); with ``unembed_last_only`` the logits are (b, 1, V).
-    ``use_flash`` (causal attention in
-    :mod:`repro_torch.kernels.flash_attention`) applies to the dense
-    family and the hybrid's shared block, ``use_scan_kernel`` (the WKV scan
-    in :mod:`repro_torch.kernels.rwkv6`, the SSD scan in
+    """batch: {"tokens": (b, s)[, "patch_embeds": (b, P, d)]}.  Returns
+    (logits (b, s_total, V), aux_loss scalar); with ``unembed_last_only``
+    the logits are (b, 1, V).  ``use_flash`` (causal attention in
+    :mod:`repro_torch.kernels.flash_attention`) applies to the dense, vlm
+    and moe families and the hybrid's shared block, ``use_scan_kernel``
+    (the WKV scan in :mod:`repro_torch.kernels.rwkv6`, the SSD scan in
     :mod:`repro_torch.kernels.ssd`) to the ssm and hybrid families; a
     family ignores a flag that does not apply to it."""
-    _check_family(cfg)
     x = embed_tokens(cfg, params["embed"], batch["tokens"])
+    if cfg.family == "vlm":
+        patches = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([patches, x], dim=1)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         x = _rwkv_stack_forward(cfg, params, x, use_kernel=use_scan_kernel)
     elif cfg.family == "hybrid":
         x = _hybrid_stack_forward(cfg, params, x, use_flash=use_flash,
                                   use_kernel=use_scan_kernel)
+    elif cfg.family in ATTN_FAMILIES:
+        x, aux = _attn_stack_forward(cfg, params, x, aux, use_flash=use_flash)
     else:
-        x = _attn_stack_forward(cfg, params, x, use_flash=use_flash)
+        raise ValueError(cfg.family)
     if unembed_last_only:
         x = x[:, -1:, :]
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
-def _attn_stack_forward(cfg, params, x, *, use_flash):
+def _attn_stack_forward(cfg, params, x, aux, *, use_flash):
+    """(x, ``aux`` plus every MoE layer's aux loss)."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     flags = global_flags(cfg)
     layer = _remat(_attn_layer, cfg)
     for i, p_l in enumerate(_layers(params["layers"], cfg.num_layers)):
-        x = layer(cfg, p_l, x, positions, bool(flags[i]), use_flash=use_flash)
-    return x
+        x, a = layer(cfg, p_l, x, positions, bool(flags[i]),
+                     use_flash=use_flash)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def _rwkv_stack_forward(cfg, params, x, *, use_kernel):
@@ -285,11 +301,10 @@ def _hybrid_stack_forward(cfg, params, x, *, use_flash, use_kernel):
 # Decode (one token against a cache)
 # ---------------------------------------------------------------------------
 def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
-    """The dense family's KV cache, the ssm family's recurrent state
-    (which does not grow with ``max_seq``), or the hybrid's mamba states
-    and conv tails plus one KV cache per application of the shared block
-    (``shared_k``/``shared_v``)."""
-    _check_family(cfg)
+    """The KV cache of the dense, vlm and moe families, the ssm family's
+    recurrent state (which does not grow with ``max_seq``), or the
+    hybrid's mamba states and conv tails plus one KV cache per application
+    of the shared block (``shared_k``/``shared_v``)."""
     if cfg.family == "ssm":
         return R.init_rwkv_state(cfg, batch, layers=cfg.num_layers,
                                  device=device)
@@ -300,6 +315,8 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
                            layers=_n_shared_applications(cfg), device=device)
         cache["shared_k"], cache["shared_v"] = kv["k"], kv["v"]
         return cache
+    if cfg.family not in ATTN_FAMILIES:
+        raise ValueError(cfg.family)
     return init_kv_cache(cfg, batch, max_seq, layers=cfg.num_layers,
                          device=device)
 
@@ -314,7 +331,7 @@ def _decode_attn_layer(cfg, p_l, x, positions, k_l, v_l, is_global):
         m = apply_mlp(cfg, p_l["mlp"], apply_norm(cfg, p_l["ln1"], x))
         return x + h + m, k_l, v_l
     x = x + h
-    m = apply_mlp(cfg, p_l["mlp"], apply_norm(cfg, p_l["ln2"], x))
+    m, _ = _ffn(cfg, p_l, apply_norm(cfg, p_l["ln2"], x))
     if cfg.post_block_norm:
         m = apply_norm(cfg, p_l["post_ln2"], m)
     return x + m, k_l, v_l
@@ -329,8 +346,8 @@ def lm_decode(
 ) -> tuple[torch.Tensor, dict]:
     """One token per row against the cache; returns (logits (b, 1, V), a
     new cache).  The cache passed in is left as it was.  The ssm family
-    reads no positions: its state carries them."""
-    _check_family(cfg)
+    reads no positions: its state carries them.  A vlm decodes text tokens
+    only: its patches went in with the prefill."""
     x = embed_tokens(cfg, params["embed"], tokens)  # (b, 1, d)
     layers = _layers(params["layers"], cfg.num_layers)
     if cfg.family == "ssm":
@@ -343,7 +360,7 @@ def lm_decode(
     elif cfg.family == "hybrid":
         x, new_cache = _hybrid_decode(cfg, params, layers, x, positions,
                                       cache)
-    else:
+    elif cfg.family in ATTN_FAMILIES:
         flags = global_flags(cfg)
         ks, vs = [], []
         for i, p_l in enumerate(layers):
@@ -354,6 +371,8 @@ def lm_decode(
             ks.append(k_l)
             vs.append(v_l)
         new_cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    else:
+        raise ValueError(cfg.family)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)
     return logits, new_cache

@@ -1,9 +1,10 @@
 """The gang runtime — the paper's "Amazon cluster" analogue (the port's
 copy of ``repro/runtime/gang.py``).
 
-Executes REAL training jobs of the ported architectures, as eager torch
-steps on one device, under any :class:`repro_torch.core.Scheduler`,
-mapping the paper's primitives to device mechanisms (DESIGN.md §2):
+Executes REAL training jobs of the assigned architectures (every family:
+dense, vlm, moe, ssm, hybrid and encdec), as eager torch steps on one
+device, under any :class:`repro_torch.core.Scheduler`, mapping the
+paper's primitives to device mechanisms (DESIGN.md §2):
 
 * machine  = host with a gang of chips; slot = gang slot;
 * task     = step quantum (a fixed budget of train/serve steps);

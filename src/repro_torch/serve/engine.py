@@ -4,13 +4,18 @@ cache), plus a batched greedy generation loop and the continuous-batching
 request queue.
 
 The steps run eagerly under ``torch.no_grad`` on the device the
-parameters lie on.  ``use_flash`` defaults to False as in the reference;
-with it, every causal prefill layer of the dense family, and every
-application of the hybrid's shared block, runs flash attention (kernel
-K2 on the card).  ``use_scan_kernel`` (default False, the reference's
-route) runs every prefill layer's WKV scan of the ssm family in kernel
-K3, and every mamba layer's SSD scan of the hybrid family in kernel K4;
-the hybrid honours both flags.
+parameters lie on.  A prefill batch is ``{"tokens"}`` plus the family's
+stub embeddings (``patch_embeds`` for a vlm, ``frame_embeds`` for the
+encdec family), handed to the model's forward as they are.
+``use_flash`` defaults to False as in the reference; with it, every
+causal prefill layer of the dense, vlm and moe families without an
+attention softcap, and every application of the hybrid's shared block,
+runs flash attention (kernel K2 on the card); gemma2 (softcaps) and the
+encdec family keep the plain attention, as the reference's dispatch
+does.  ``use_scan_kernel`` (default False, the reference's route) runs
+every prefill layer's WKV scan of the ssm family in kernel K3, and every
+mamba layer's SSD scan of the hybrid family in kernel K4; the hybrid
+honours both flags.
 """
 
 from __future__ import annotations

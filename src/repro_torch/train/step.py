@@ -23,7 +23,10 @@ port's (their wrappers refuse inputs that require grad), so
 runs under ``torch.no_grad()`` and may take the flash kernel.
 
 A state is ``{"params": ParamTree (grads on), "opt": {"m", "v", "step"}}``
-on one device; batches are ``{"tokens", "labels"}`` int tensors there.
+on one device; batches are ``{"tokens", "labels"}`` int tensors there,
+plus the family's ``patch_embeds`` (vlm) or ``frame_embeds`` (encdec),
+which microbatching splits along with them.  The moe family's aux loss
+enters the total with ``TrainConfig.aux_weight``.
 """
 
 from __future__ import annotations

@@ -15,9 +15,16 @@ that has only the port's dependencies:
   routes, ``launches_tc`` for the bf16 one); windows 16/48/100 over one
   128-row kv tile and 300 over eight, with strided (transposed) inputs,
   f32 and bf16; non-causal calls with ragged queries; a causal call with
-  more queries than keys; a bf16 tensor whose seq stride is not a
-  multiple of 16 bytes is refused, with no copy and no other route;
+  more queries than keys; head dim 64 with 24 -> 8 heads at
+  granite-moe-3b's (4, 24, 4096, 64); besides the elementwise bounds, the
+  relative error of every output row of every head within chip_smoke.py's
+  ``FLASH_ROW_REL`` (1e-4 f32, 1.6e-2 bf16); a bf16 tensor whose seq
+  stride is not a multiple of 16 bytes is refused, with no copy and no
+  other route;
 * the serving prefill with K2 against the non-flash path, f32, 1e-4;
+* the MoE layer (granite's routing: 40 experts, top-8; llama4's: top-1
+  with a shared expert) on the card against the same call on the CPU,
+  f32: the same experts and kept set, outputs within 1e-5;
 * K3 (the RWKV6 WKV scan) against its plain version on the shapes of
   tests/test_kernels.py, strong decays at chunk 16, a ragged 16-chunk scan
   over 16 (batch, head) rows (each chunk's state handed from block to
@@ -68,7 +75,8 @@ that has only the port's dependencies:
 * the model kernels' wrappers (K2, K3, K4) refuse inputs that require
   grad while grad mode is on (``KernelInputError``: they have no
   backward) and run under ``torch.no_grad()``, launching once;
-* a train step of each ported family's SMOKE config on the card launches
+* a train step of the olmo, rwkv6, zamba2, granite-moe and whisper
+  SMOKE configs on the card launches
   no model kernel, and two steps from one state give the same bits.
 """
 
@@ -100,6 +108,7 @@ SHAPES = {  # b, h, kvh, sq, skv, hd, block_q, block_kv
     "sq>skv": (1, 4, 2, 80, 48, 128, 32, 32),
     "hd80": (1, 4, 2, 96, 96, 80, 32, 32),
     "zamba2-hd80": (4, 32, 32, 4096, 4096, 80, 512, 512),
+    "granite-hd64-gqa3": (4, 24, 8, 4096, 4096, 64, 512, 512),
 }
 
 
@@ -114,6 +123,10 @@ def _assert_within(got, want):
     for atol, rtol in TOLS[want.dtype]:
         torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                    rtol=rtol)
+    rel = SMOKE.FLASH_ROW_REL[want.dtype]
+    ratio, where = SMOKE.row_rel_ratio(got, want, rel)
+    assert ratio <= 1.0, (f"a row of (batch, head) {where} is {ratio} of "
+                          f"the relative bound {rel}")
 
 
 @pytest.fixture
@@ -230,6 +243,40 @@ def test_prefill_with_kernel_matches_plain_on_card(cuda):
     assert K.launches == before + cfg.num_layers
     want = make_prefill_step(cfg)(params, {"tokens": tok})
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+#: (case, SMOKE config, overrides): granite's routing at SMOKE width,
+#: llama4's (top-1, shared expert), and a capacity factor that drops.
+MOE_CASES = {
+    "granite-top8": ("granite_moe_3b", dict(num_experts=40, top_k=8)),
+    "llama4-top1-shared": ("llama4_scout_17b", {}),
+    "granite-cf0.25": ("granite_moe_3b", dict(num_experts=8, top_k=2,
+                                              capacity_factor=0.25)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_ffn_on_card_matches_cpu(cuda, case):
+    from repro_torch.models.moe import init_moe, moe_ffn, route
+
+    name, extra = MOE_CASES[case]
+    cfg = dataclasses.replace(configs.get_smoke(name), dtype="float32",
+                              **extra)
+    p = init_moe(cfg, torch.Generator().manual_seed(3))
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 64, cfg.d_model)).astype(np.float32))
+    p_card = {k: (v.to(cuda) if isinstance(v, torch.Tensor)
+                  else {n: t.to(cuda) for n, t in v.items()})
+              for k, v in p.items()}
+    with torch.no_grad():
+        got, aux = moe_ffn(cfg, p_card, x.to(cuda))
+        want, want_aux = moe_ffn(cfg, p, x)
+        r, r_cpu = route(cfg, p_card, x.to(cuda)), route(cfg, p, x)
+    assert torch.equal(r.idx.cpu(), r_cpu.idx)
+    assert torch.equal(r.keep.cpu(), r_cpu.keep)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-6, rtol=0)
 
 
 RWKV_SHAPES = {  # b, h, t, d, chunk, decay sharpness
@@ -580,7 +627,8 @@ def test_kernel_wrappers_refuse_grad_on_card(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["olmo_1b", "rwkv6_1b6", "zamba2_2b7"])
+@pytest.mark.parametrize("name", ["olmo_1b", "rwkv6_1b6", "zamba2_2b7",
+                                  "granite_moe_3b", "whisper_base"])
 def test_train_step_on_card(cuda, name):
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.models.params import tree_flatten

@@ -16,7 +16,8 @@ the inputs are drawn from numpy seeds.  Held to the reference:
   (examples/serve_decode.py), exactly.
 
 And in the port alone: the last-position prefill logits against the
-decode route's, the device rule and the named refusals.
+decode route's, the device rule, and every name of the reference's
+registry resolving to its config.
 """
 
 import dataclasses
@@ -92,30 +93,26 @@ def test_configs_equal_reference(name):
 
 
 def test_unported_architectures_and_families_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        configs.get_config("gemma2-2b")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        configs.get_smoke("llava-next-34b")
-    # rwkv6, zamba2 and the ssm and hybrid families are ported.
-    assert configs.get_smoke("rwkv6-1.6b").family == "ssm"
-    ssm = configs.get_smoke("rwkv6_1b6")
-    assert set(init_cache(ssm, 1, 8, device="cpu")) == {"S", "shift",
-                                                        "cmix_shift"}
-    hybrid = configs.get_smoke("zamba2-2.7b")
-    assert hybrid.family == "hybrid"
-    assert set(init_cache(hybrid, 1, 8, device="cpu")) == {
-        "ssm", "conv_x", "conv_B", "conv_C", "shared_k", "shared_v"}
+    """None is left: every name and dashed alias of the reference
+    resolves in the port to the reference's config, every family builds
+    its cache, and an unknown name still raises ``KeyError``."""
+    for name in [*ref_configs.ARCHS, *ref_configs._ALIASES]:
+        for getter in ("get_config", "get_smoke"):
+            got = getattr(configs, getter)(name)
+            want = getattr(ref_configs, getter)(name)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+    keys = {"dense": {"k", "v"}, "vlm": {"k", "v"}, "moe": {"k", "v"},
+            "encdec": {"k", "v", "xk", "xv"},
+            "ssm": {"S", "shift", "cmix_shift"},
+            "hybrid": {"ssm", "conv_x", "conv_B", "conv_C", "shared_k",
+                       "shared_v"}}
+    for name in configs.ARCHS:
+        cfg = configs.get_smoke(name)
+        assert set(init_cache(cfg, 1, 8, device="cpu")) == keys[cfg.family]
     with pytest.raises(KeyError):
         configs.get_config("nope")
-    moe = dataclasses.replace(configs.get_smoke("olmo_1b"), family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        init_model(moe, torch.Generator().manual_seed(0), device="cpu")
-    vlm = dataclasses.replace(moe, family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        init_cache(vlm, 1, 8, device="cpu")
-    encdec = dataclasses.replace(moe, family="encdec")
-    with pytest.raises(NotImplementedError, match="'encdec'"):
-        init_cache(encdec, 1, 8, device="cpu")
+    with pytest.raises(KeyError):
+        configs.get_smoke("nope")
 
 
 def test_device_rule():
