@@ -239,7 +239,7 @@ script exits non-zero:
     decode step; then one more prefill with the routing recorded
     (capacity 4096 per expert, the share of choices dropped by layer) and
     profiles of a prefill and a decode step by the MoE layer's parts
-    (scatter ``index_add_``, gather ``index_select``, ``cumsum``, the
+    (scatter ``scatter_add``, gather ``gather``, ``cumsum``, the
     top-k's ``sort``, ``one_hot``, the expert ``bmm``s) and the layer's
     whole share of device time;
 26. MoE cross-checks in f32 on the same weights, 1 x 1024
@@ -262,10 +262,28 @@ script exits non-zero:
     shared expert, K2 2 per prefill): prefill cold and warm, K2's
     launches per prefill by counter, peak memory, ``greedy_generate`` for
     4 x (8 + 8) and finite prefill and decode logits;
-28. K2 at granite-moe-3b's head dim 64 (4, 24 -> 8, 4096, 64) beside its
+28. the multi-device layout and the dry-run (``dryrun_main_path``): (a)
+    ``python -m repro_torch.launch.dryrun`` on the host, with no card, for
+    olmo-1b x train_4k on both production meshes, granite-moe-3b x
+    prefill_32k on the multi-pod mesh (``--skip-cost``: its MoE group pin
+    over ("pod", "data")) and zamba2-2.7b x long_500k (batch 1: the
+    caches' sequence over data), the three processes started together,
+    every cell OK, each cell's per-device bytes, FLOPs, collectives,
+    roofline terms and useful ratio printed; (b) ``make_host_mesh()`` is
+    a (1, 1) ``cuda`` mesh, and olmo-1b at its published widths, traced
+    by the dry-run for a 1 x 4096 prefill on it, is held to the card:
+    its real f32 ``ParamTree`` distributed by ``param_specs`` (and the
+    tokens by ``batch_specs``) takes exactly the trace's argument bytes
+    (the caching allocator's requested bytes; ``memory_allocated``, which
+    rounds each block up, beside them); the same prefill on the plain
+    route on plain tensors peaks (``max_memory_allocated`` less the
+    arguments) within 10% or 256 MiB of the trace's temp bytes;
+    ``FlopCounterMode`` counts the trace's FLOPs exactly; the prefill's
+    time beside the roofline's bound (not gated), and no kernel launched;
+29. K2 at granite-moe-3b's head dim 64 (4, 24 -> 8, 4096, 64) beside its
     bound, its plain version and ``F.scaled_dot_product_attention``, with
     the same fields as phase 13;
-29. the ``{"kernels": [...]}`` line (K1, K2, K3, K4 and the projection
+30. the ``{"kernels": [...]}`` line (K1, K2, K3, K4 and the projection
     kernel), the card's name and power limit, and the final ``{"ok":
     true, ...}`` line.
 
@@ -274,8 +292,9 @@ path's two cells, the scenario worker's batch, the CLI sweep's hfsp
 cell, the "auto" latch's cell, the live service's session, olmo-1b
 serving, rwkv6 serving, zamba2 serving, olmo-1b training, the gang
 runtime, ml-workload's cells, granite-moe-3b serving, each config of
-``families_serve``) runs with every kernel's launch count set to 0 just
-before it and read just after.
+``families_serve``, the dry-run's olmo-1b prefill on the plain route)
+runs with every kernel's launch count set to 0 just before it and read
+just after.
 """
 
 from __future__ import annotations
@@ -3318,10 +3337,10 @@ def phase_ml_workload():
 #: leaves out the norms and the 13 padded vocab rows).
 GRANITE_PARAMS = 3_298_813_440
 #: The MoE layer's parts by the aten op whose launches make each of them
-#: (within the layer: the embedding's lookup is an ``index_select`` too).
+#: (within the layer).
 MOE_OPS = {
-    "scatter": "aten::index_add_",
-    "gather": "aten::index_select",
+    "scatter": "aten::scatter_add",
+    "gather": "aten::gather",
     "cumsum": "aten::cumsum",
     "topk": "aten::sort",
     "one_hot": "aten::one_hot",
@@ -3665,6 +3684,219 @@ def phase_families_serve(seed: int) -> dict:
                 for i, entry in enumerate(FAMILIES))
 
 
+#: The dry-run's cells on the card's host: (arch, shape, flags).  olmo-1b
+#: trains on both production meshes with the cost samples; granite's MoE
+#: group pin runs over ("pod", "data") on the multi-pod mesh (memory
+#: only, as the reference's help gives --skip-cost for that pass); and
+#: zamba2's long_500k (batch 1) shards the caches' sequence over data.
+DRYRUN_CELLS = (
+    ("olmo-1b", "train_4k", ("--both-meshes",)),
+    ("granite-moe-3b", "prefill_32k", ("--multi-pod", "--skip-cost")),
+    ("zamba2-2.7b", "long_500k", ()),
+)
+#: How far the card's peak may sit from the dry-run's temp bytes.
+DRYRUN_TEMP_REL = 0.10
+DRYRUN_TEMP_ABS = 256 * 2**20
+
+
+def dryrun_cells() -> list[dict]:
+    """(a) ``python -m repro_torch.launch.dryrun`` on each of
+    ``DRYRUN_CELLS``, all started together on the host (no card: they
+    trace ``meta`` tensors under a fake process group of 512 ranks);
+    every cell must be OK.  Returns the reports."""
+    import os
+    import signal
+    import tempfile
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    (ROOT / "build").mkdir(exist_ok=True)
+    outdir = Path(tempfile.mkdtemp(prefix="dryrun-", dir=ROOT / "build"))
+    procs = []
+    try:
+        for arch, shape, flags in DRYRUN_CELLS:
+            out = outdir / f"{arch}-{shape}.json"
+            procs.append((out, time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, *flags, "--out", str(out)],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, start_new_session=True)))
+        reports = []
+        for out, t0, proc in procs:
+            stdout, stderr = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"{proc.args[3:]} exited {proc.returncode}:\n"
+                    f"{stdout[-2000:]}\n{stderr[-4000:]}")
+            for r in json.loads(out.read_text()):
+                if r["status"] != "OK":
+                    raise AssertionError(f"dry-run cell not OK: {r}")
+                r["process_s"] = time.perf_counter() - t0
+                reports.append(r)
+        return reports
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+
+
+def phase_dryrun_main_path(seed: int) -> dict:
+    """(a) the dry-run's cells on the host (``dryrun_cells``), each cell's
+    per-device bytes, FLOPs, collectives, roofline terms and useful ratio
+    printed; (b) on the card, ``make_host_mesh()`` is a (1, 1) ``cuda``
+    mesh, and olmo-1b at its published widths, traced by the dry-run for
+    a 1 x 4096 prefill on that mesh, is held to the real thing: its f32
+    ``ParamTree`` distributed by ``param_specs``, and the tokens by
+    ``batch_specs``, take exactly the trace's argument bytes (the bytes
+    their tensors requested of the caching allocator; its
+    ``memory_allocated``, which rounds each block up, printed beside
+    them); the same prefill on the same plain
+    route on plain tensors peaks (``max_memory_allocated`` less the
+    arguments) within 10% or 256 MiB of its temp bytes, whichever is
+    larger; ``FlopCounterMode`` counts the trace's (depth-extrapolated)
+    FLOPs exactly.  The prefill's time is printed beside the roofline's
+    bound, not gated.  No kernel runs on this path: the counters stay 0."""
+    import gc
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import close_host_mesh, make_host_mesh
+    from repro_torch.models import init_model
+    from repro_torch.serve import make_prefill_step
+    from repro_torch.sharding.specs import (
+        batch_specs,
+        distribute,
+        distribute_tree,
+        param_specs,
+    )
+
+    t_start = time.perf_counter()
+    cells = dryrun_cells()
+    for r in cells:
+        emit("dryrun_cell", **{k: r.get(k) for k in (
+            "arch", "shape", "multi_pod", "chips", "argument_bytes",
+            "output_bytes", "temp_bytes", "flops", "bytes", "coll_bytes",
+            "collective_counts", "compute_s", "memory_s", "collective_s",
+            "dominant", "model_flops", "useful_ratio", "compile_s",
+            "cost_compile_s", "process_s")})
+
+    mesh = make_host_mesh()
+    try:
+        if mesh.device_type != "cuda" or tuple(mesh.mesh.shape) != (1, 1):
+            raise AssertionError(f"host mesh {mesh}")
+        cfg = get_config("olmo_1b")
+        shape = ShapeConfig("prefill_4k", 4096, 1, "prefill")
+        report = dryrun.lower_cell("olmo-1b", shape.name, cfg=cfg,
+                                   shape=shape, mesh=mesh, verbose=False)
+        full = dryrun.trace_cell(cfg, shape, mesh)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        base_req = requested_bytes()
+        gen = torch.Generator(device="cuda").manual_seed(seed + 24)
+        params = init_model(cfg, gen, device="cuda")
+        dparams = distribute_tree(params, mesh,
+                                  param_specs(cfg, mesh, params))
+        tokens = torch.randint(0, cfg.vocab_size, (1, shape.seq_len),
+                               generator=gen, device="cuda",
+                               dtype=torch.int32)
+        dtokens = distribute(tokens, mesh,
+                             batch_specs(cfg, mesh, shape)["tokens"])
+        del params, tokens
+        gc.collect()
+        torch.cuda.synchronize()
+        # The allocator's blocks round the tensors up (a large block keeps
+        # a segment's tail of up to 1 MiB), so the exact count is the
+        # bytes its live tensors requested; memory_allocated is beside it.
+        args_bytes = requested_bytes() - base_req
+        args_blocks = torch.cuda.memory_allocated() - base
+        if args_bytes != report["argument_bytes"]:
+            raise AssertionError(
+                f"argument bytes: card {args_bytes} requested "
+                f"({args_blocks} in blocks), dry-run "
+                f"{report['argument_bytes']}")
+
+        plain = dryrun_plain_tree(dparams)
+        batch = {"tokens": dtokens.to_local()}
+        step = make_prefill_step(cfg)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        logits = step(plain, batch)
+        torch.cuda.synchronize()
+        peak_temp = torch.cuda.max_memory_allocated() - base - args_blocks
+        launches = model_kernel_launches()
+        if any(launches.values()):
+            raise AssertionError(f"kernels on the plain route: {launches}")
+        if not bool(torch.isfinite(logits.float()).all()):
+            raise AssertionError("non-finite logits")
+        del logits
+        gap = abs(peak_temp - report["temp_bytes"])
+        allowed = max(DRYRUN_TEMP_REL * report["temp_bytes"],
+                      DRYRUN_TEMP_ABS)
+        if gap > allowed:
+            raise AssertionError(
+                f"temp bytes: card peak {peak_temp}, dry-run "
+                f"{report['temp_bytes']} (allowed {allowed:.0f})")
+        with FlopCounterMode(display=False) as fc:
+            step(plain, batch)
+        card_flops = fc.get_total_flops()
+        if card_flops != report["flops"] or \
+                card_flops != full.roofline.flops:
+            raise AssertionError(
+                f"FLOPs: FlopCounterMode {card_flops}, dry-run "
+                f"{report['flops']} (full-depth trace "
+                f"{full.roofline.flops})")
+        prefill_ms = cuda_ms(lambda: step(plain, batch), 3)
+        entry = {"mesh": [1, 1], "device_type": mesh.device_type,
+                 "model": cfg.name, "prefill": [1, shape.seq_len],
+                 "argument_bytes": args_bytes,
+                 "argument_block_bytes": args_blocks,
+                 "dryrun_argument_bytes": report["argument_bytes"],
+                 "peak_temp_bytes": peak_temp,
+                 "dryrun_temp_bytes": report["temp_bytes"],
+                 "temp_gap_bytes": gap, "temp_allowed_bytes": allowed,
+                 "flops": card_flops, "dryrun_flops": report["flops"],
+                 "dryrun_bytes": report["bytes"],
+                 "dryrun_output_bytes": report["output_bytes"],
+                 "prefill_ms": prefill_ms,
+                 "roofline_bound_ms": 1e3 * max(
+                     report["compute_s"], report["memory_s"],
+                     report["collective_s"]),
+                 "dominant": report["dominant"],
+                 "cells": len(cells),
+                 "seconds": time.perf_counter() - t_start}
+        emit("dryrun_main_path", **entry)
+        del plain, batch, dparams, dtokens
+        gc.collect()
+        torch.cuda.empty_cache()
+        return entry
+    finally:
+        close_host_mesh()
+
+
+def requested_bytes() -> int:
+    """The bytes the live CUDA tensors asked the caching allocator for."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def dryrun_plain_tree(tree):
+    """A ParamTree of DTensors on a one-device mesh as plain tensors
+    (each local shard is the whole tensor there), sharing their storage."""
+    from repro_torch.models.params import ParamTree
+
+    def plain(node):
+        if isinstance(node, (dict, ParamTree)):
+            return {k: plain(v) for k, v in node.items()}
+        return node.to_local()
+
+    return ParamTree(plain(tree))
+
+
 def phase_flash_timing_hd64(seed: int, serve_launches: int,
                             per_prefill: int) -> dict:
     """K2 at granite-moe-3b's attention call (4, 24 -> 8, 4096, 64) bf16:
@@ -3798,6 +4030,7 @@ def main() -> int:
     torch.cuda.empty_cache()  # granite's weights are gone before the others'
     family_launches = run_phase("families_serve", phase_families_serve,
                                 args.seed)
+    run_phase("dryrun_main_path", phase_dryrun_main_path, args.seed)
     # K2 runs at head dim 64 on granite's prefill, and on the prefills of
     # the three other configs whose attention takes it.
     k2["granite_hd64"] = run_phase(

@@ -3,9 +3,10 @@ from repro_torch.models.api import (
     forward,
     init_cache,
     init_model,
+    init_model_shapes,
     loss_fn,
 )
 from repro_torch.models.params import ParamTree, from_reference
 
 __all__ = ["ParamTree", "decode_step", "forward", "from_reference",
-           "init_cache", "init_model", "loss_fn"]
+           "init_cache", "init_model", "init_model_shapes", "loss_fn"]

@@ -32,6 +32,16 @@ def init_model(cfg: ModelConfig, generator: torch.Generator | None = None,
     return ParamTree(T.init_lm(cfg, generator))
 
 
+def init_model_shapes(cfg: ModelConfig) -> ParamTree:
+    """Every leaf of the model's :class:`ParamTree` as a ``meta`` tensor,
+    under the reference's names and in ``cfg.param_dtype``: shapes and
+    dtypes only, nothing allocated and nothing drawn (the counterpart of
+    ``jax.eval_shape(lambda: init_model(cfg, key))``)."""
+    if cfg.family == "encdec":
+        return ParamTree(E.init_encdec(cfg, None))
+    return ParamTree(T.init_lm(cfg, None))
+
+
 def forward(
     cfg: ModelConfig,
     params,

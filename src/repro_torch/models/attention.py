@@ -17,7 +17,14 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import apply_rope, dense_init, rope_freqs, softcap
+from repro_torch.models.common import (
+    apply_rope,
+    dense_init,
+    gen_device,
+    rope_freqs,
+    softcap,
+)
+from repro_torch.models.spmd import einsum
 
 NEG_INF = -2.0**30  # large-but-finite: keeps softmax NaN-free on masked rows
 
@@ -36,7 +43,8 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, *,
         dt = getattr(torch, cfg.param_dtype)
         for name, shape in (("bq", (h, hs)), ("bk", (kvh, hs)),
                             ("bv", (kvh, hs)), ("bo", (d,))):
-            p[name] = torch.zeros((*pref, *shape), dtype=dt, device=gen.device)
+            p[name] = torch.zeros((*pref, *shape), dtype=dt,
+                                  device=gen_device(gen))
     return p
 
 
@@ -115,7 +123,7 @@ def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``jnp.einsum`` promotes: whisper's cross-attention reads bf16 queries
     against the keys of an f32 encoder output."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.einsum(eq, a.to(dt), b.to(dt))
+    return einsum(eq, a.to(dt), b.to(dt))
 
 
 def _mha_dense(cfg, q, k, v, mask, scale):

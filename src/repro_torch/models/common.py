@@ -8,7 +8,9 @@ are kept in ``cfg.param_dtype`` (fp32) and cast to the activation dtype
 at each use, as in the reference.  Initializers draw from a seeded
 ``torch.Generator``; they give other numbers than ``jax.random`` from the
 same seed, so the tests carry the reference's parameters across instead
-(:func:`repro_torch.models.params.from_reference`).
+(:func:`repro_torch.models.params.from_reference`).  With no
+generator (``gen=None``) they give shape-only ``meta`` tensors, the
+counterpart of ``jax.eval_shape`` over the reference's init.
 """
 
 from __future__ import annotations
@@ -19,20 +21,38 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.spmd import (
+    like_last_dim,
+    lookup,
+    on_mesh,
+    unembed_input,
+)
 
 
 # ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
-def dense_init(gen: torch.Generator, shape, in_axis_size: int,
+def gen_device(gen: torch.Generator | None) -> torch.device:
+    """The device parameters are drawn on: the generator's, or ``meta``
+    when ``gen`` is None (a shape-only init: every initializer then gives
+    a tensor of the right shape and dtype with no storage and no draw)."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def dense_init(gen: torch.Generator | None, shape, in_axis_size: int,
                dtype: str) -> torch.Tensor:
     """Truncated-normal fan-in init (the common LM choice)."""
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if gen is None:
+        return torch.empty(shape, dtype=getattr(torch, dtype), device="meta")
+    t = torch.empty(shape, dtype=torch.float32, device=gen_device(gen))
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * (1.0 / math.sqrt(in_axis_size))).to(getattr(torch, dtype))
 
 
-def embed_init(gen: torch.Generator, shape, dtype: str) -> torch.Tensor:
+def embed_init(gen: torch.Generator | None, shape, dtype: str
+               ) -> torch.Tensor:
+    if gen is None:
+        return torch.empty(shape, dtype=getattr(torch, dtype), device="meta")
     t = torch.randn(shape, generator=gen, device=gen.device)
     return (t * 0.02).to(getattr(torch, dtype))
 
@@ -125,8 +145,8 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_ff: int | None = None,
         p["wg"] = dense_init(gen, (*pref, d, dff), d, cfg.param_dtype)
     p["wo"] = dense_init(gen, (*pref, dff, d), dff, cfg.param_dtype)
     if cfg.use_bias:
-        p["bi"] = _full((*pref, dff), 0.0, cfg.param_dtype, gen.device)
-        p["bo"] = _full((*pref, d), 0.0, cfg.param_dtype, gen.device)
+        p["bi"] = _full((*pref, dff), 0.0, cfg.param_dtype, gen_device(gen))
+        p["bo"] = _full((*pref, d), 0.0, cfg.param_dtype, gen_device(gen))
     return p
 
 
@@ -172,7 +192,7 @@ def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
     # F.embedding, not indexing: its backward sums each row's grads in a
     # fixed order, where indexing's (an accumulating index_put_) does not
     # on the CPU, and the train step must give the same bits every run.
-    x = F.embedding(tokens, p["embedding"]).to(cfg.activation_dtype())
+    x = lookup(tokens, p["embedding"]).to(cfg.activation_dtype())
     # gemma-style sqrt(d) scaling by the factor rounded to the activation
     # dtype, as the reference multiplies by it.
     scale = torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
@@ -181,12 +201,13 @@ def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     w = p["unembed"] if "unembed" in p else p["embedding"].T
+    x = unembed_input(x, w)
     logits = x @ w.to(x.dtype)
     logits = softcap(logits, cfg.final_softcap)
     if cfg.vocab_pad:
         # Mask padded vocab entries out of every softmax/argmax.
         valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
-        logits = torch.where(valid, logits, -1e30)
+        logits = torch.where(like_last_dim(valid, logits), logits, -1e30)
     return logits
 
 
@@ -199,8 +220,22 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     The reference picks the gold logit with a one-hot contraction so that
     GSPMD keeps vocab-sharded logits sharded.  On one card there is no
     vocab sharding to keep, and ``gather`` reads the same logit without a
-    (b, s, V) f32 one-hot (3.3 GB at olmo-1b's 4 x 4096 x 50304)."""
+    (b, s, V) f32 one-hot (3.3 GB at olmo-1b's 4 x 4096 x 50304).  On a
+    mesh, DTensor logits keep their vocab shards, as GSPMD keeps the
+    reference's: the log-normaliser from a max and a sum of exponentials
+    (one partial reduction per shard each) and the gold logit by the
+    one-hot contraction (a gather across vocab shards has no DTensor rule
+    that runs on ``meta`` shards)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    if not on_mesh(logits):
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+        return (logz - gold).mean()
+    top = logits.amax(dim=-1, keepdim=True).detach()
+    logz = (logits - top).exp().sum(-1).log() + top[..., 0]
+    vocab = like_last_dim(
+        torch.arange(logits.shape[-1], device=logits.device), logits)
+    hit = labels.long()[..., None] == vocab
+    gold = torch.where(hit, logits, 0.0).sum(-1)
     return (logz - gold).mean()
+

@@ -42,11 +42,13 @@ from repro_torch.models.common import (
     apply_norm,
     embed_init,
     embed_tokens,
+    gen_device,
     init_embed,
     init_mlp,
     init_norm,
     unembed,
 )
+from repro_torch.models.spmd import stack
 from repro_torch.models.transformer import _layers, _remat
 
 #: Rows of the decoder's learned position table; longer decoder prefills
@@ -55,9 +57,9 @@ DEC_POSITIONS = 4096
 
 
 def init_encdec(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    """Random parameters as a nested dict, drawn from ``gen`` on
-    ``gen.device``."""
-    Le, Ld, dev = cfg.enc_layers, cfg.dec_layers, gen.device
+    """Random parameters as a nested dict, drawn from ``gen`` on its
+    device; with ``gen=None`` shape-only tensors on ``meta``."""
+    Le, Ld, dev = cfg.enc_layers, cfg.dec_layers, gen_device(gen)
     return {
         "embed": init_embed(cfg, gen),
         "enc_pos": embed_init(gen, (cfg.num_frames, cfg.d_model),
@@ -214,5 +216,5 @@ def encdec_decode(
         x = x + apply_mlp(cfg, p_l["mlp"], apply_norm(cfg, p_l["ln2"], x))
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
+    return logits, {"k": stack(ks), "v": stack(vs),
                     "xk": cache["xk"], "xv": cache["xv"]}

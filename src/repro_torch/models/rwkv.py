@@ -28,12 +28,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import _full, dense_init
+from repro_torch.models.common import _full, dense_init, gen_device
+from repro_torch.models.spmd import einsum, pad_seq
 
 
 def init_rwkv_block(cfg: ModelConfig, gen: torch.Generator, *,
                     layers: int | None = None) -> dict:
-    d, dt, dev = cfg.d_model, cfg.param_dtype, gen.device
+    d, dt, dev = cfg.d_model, cfg.param_dtype, gen_device(gen)
     pref = () if layers is None else (layers,)
     heads = d // cfg.rwkv_head_dim
     return {
@@ -58,7 +59,7 @@ def init_channel_mix(cfg: ModelConfig, gen: torch.Generator, *,
     d, dff, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
     pref = () if layers is None else (layers,)
     return {
-        "mu": _full((*pref, 2, d), 0.5, dt, gen.device),
+        "mu": _full((*pref, 2, d), 0.5, dt, gen_device(gen)),
         "wk": dense_init(gen, (*pref, d, dff), d, dt),
         "wv": dense_init(gen, (*pref, dff, d), dff, dt),
         "wr": dense_init(gen, (*pref, d, d), d, dt),
@@ -94,7 +95,7 @@ def rwkv_scan_ref(r, k, v, w, u, state):
     outs = []
     for t in range(r.shape[1]):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]          # (b,h,dk,dv)
-        o_t = torch.einsum("bhk,bhkv->bhv", r[:, t],
+        o_t = einsum("bhk,bhkv->bhv", r[:, t],
                            S + u[None, :, :, None] * kv)
         S = w[:, t, :, :, None] * S + kv
         outs.append(o_t)
@@ -118,8 +119,8 @@ def rwkv_scan_chunked(r, k, v, w, u, state, chunk: int = 64):
     dv = v.shape[-1]
     pad = (-t) % chunk
     if pad:
-        r, k, v = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (r, k, v))
-        w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
+        r, k, v = (pad_seq(x, pad) for x in (r, k, v))
+        w = pad_seq(w, pad, value=1.0)
     tc = r.shape[1] // chunk
     shape_c = (b, tc, chunk, h, dk)
     rc, kc, wc = r.reshape(shape_c), k.reshape(shape_c), w.reshape(shape_c)
@@ -138,17 +139,17 @@ def rwkv_scan_chunked(r, k, v, w, u, state, chunk: int = 64):
         rcu, kcu, vcu, wu = rc[:, i], kc[:, i], vc[:, i], wc[:, i]
         # Inter-chunk: queries read the carried state through their decay.
         r_dec = rcu * a_pre[:, i].to(rcu.dtype)
-        o_inter = torch.einsum("bchk,bhkv->bchv", r_dec, S)
+        o_inter = einsum("bchk,bhkv->bchv", r_dec, S)
         # Intra-chunk: ratio form a_pre_i / (a_pre_j * w_j).
         k_dec = kcu * a_post[:, i].to(kcu.dtype)
         inv_k = kcu / torch.clamp((a_pre[:, i] * wu).to(kcu.dtype), min=1e-30)
-        scores = torch.einsum("bchk,bdhk->bhcd", r_dec, inv_k)
+        scores = einsum("bchk,bdhk->bhcd", r_dec, inv_k)
         scores = torch.where(tri, scores, 0.0)
-        o_intra = torch.einsum("bhcd,bdhv->bchv", scores, vcu)
+        o_intra = einsum("bhcd,bdhv->bchv", scores, vcu)
         # Bonus diagonal term: u ⊙ k_t v_t^T read by r_t.
-        diag = torch.einsum("bchk,hk,bchk->bch", rcu, u.to(rcu.dtype), kcu)
+        diag = einsum("bchk,hk,bchk->bch", rcu, u.to(rcu.dtype), kcu)
         o_diag = diag[..., None] * vcu
-        kv_end = torch.einsum("bchk,bchv->bhkv", k_dec, vcu)
+        kv_end = einsum("bchk,bchv->bhkv", k_dec, vcu)
         S = torch.exp(total[:, i, 0])[..., None].to(S.dtype) * S + kv_end
         outs.append(o_inter + o_intra + o_diag)
     out = torch.stack(outs, dim=1).reshape(b, tc * chunk, h, dv)

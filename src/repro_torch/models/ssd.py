@@ -26,14 +26,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import _full, dense_init
+from repro_torch.models.common import _full, dense_init, gen_device
+from repro_torch.models.spmd import einsum, pad_seq
 
 CONV_K = 4
 
 
 def init_ssd_block(cfg: ModelConfig, gen: torch.Generator, *,
                    layers: int | None = None) -> dict:
-    d, pdt, dev = cfg.d_model, cfg.param_dtype, gen.device
+    d, pdt, dev = cfg.d_model, cfg.param_dtype, gen_device(gen)
     d_inner = cfg.ssm_expand * d
     n = cfg.ssm_state
     heads = d_inner // cfg.ssm_head_dim
@@ -109,7 +110,7 @@ def ssd_scan_ref(xh, dt, a, B, C, state):
     for t in range(xh.shape[1]):
         dBx = (xh[:, t] * dt[:, t, :, None])[..., None] * B[:, t, None, None, :]
         S = a[:, t, :, None, None] * S + dBx
-        ys.append(torch.einsum("bhpn,bn->bhp", S, C[:, t]))
+        ys.append(einsum("bhpn,bn->bhp", S, C[:, t]))
     return torch.stack(ys, dim=1), S
 
 
@@ -129,11 +130,11 @@ def ssd_scan_chunked(xh, dt, a, B, C, state, chunk: int = 64):
     n = B.shape[-1]
     pad = (-t) % chunk
     if pad:
-        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        a = F.pad(a, (0, 0, 0, pad), value=1.0)
-        B = F.pad(B, (0, 0, 0, pad))
-        C = F.pad(C, (0, 0, 0, pad))
+        xh = pad_seq(xh, pad)
+        dt = pad_seq(dt, pad)
+        a = pad_seq(a, pad, value=1.0)
+        B = pad_seq(B, pad)
+        C = pad_seq(C, pad)
     tc = xh.shape[1] // chunk
     xc = xh.reshape(b, tc, chunk, h, p).float()
     dtc = dt.reshape(b, tc, chunk, h)
@@ -153,11 +154,11 @@ def ssd_scan_chunked(xh, dt, a, B, C, state, chunk: int = 64):
         cumu, totu = cum[:, i], total[:, i]
         ratio = torch.exp(cumu[:, :, None, :] - cumu[:, None, :, :])  # (b,t,j,h)
         ratio = torch.where(tri[None, :, :, None], ratio, 0.0)
-        cb = torch.einsum("bin,bjn->bij", Cu, Bu)
+        cb = einsum("bin,bjn->bij", Cu, Bu)
         scores = ratio * cb[..., None] * dtu[:, None, :, :]         # (b,t,j,h)
-        y_intra = torch.einsum("btjh,bjhp->bthp", scores, xcu)
-        y_inter = torch.einsum("bhpn,bcn,bch->bchp", S, Cu, torch.exp(cumu))
-        S = torch.exp(totu)[:, :, None, None] * S + torch.einsum(
+        y_intra = einsum("btjh,bjhp->bthp", scores, xcu)
+        y_inter = einsum("bhpn,bcn,bch->bchp", S, Cu, torch.exp(cumu))
+        S = torch.exp(totu)[:, :, None, None] * S + einsum(
             "bch,bchp,bcn->bhpn",
             dtu * torch.exp(totu[:, None, :] - cumu), xcu, Bu,
         )

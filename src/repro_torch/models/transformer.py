@@ -44,12 +44,14 @@ from repro_torch.models.common import (
     apply_mlp,
     apply_norm,
     embed_tokens,
+    gen_device,
     init_embed,
     init_mlp,
     init_norm,
     unembed,
 )
 from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.models.spmd import stack
 
 #: The families whose layers are attention + MLP (or MoE) blocks.
 ATTN_FAMILIES = ("dense", "vlm", "moe")
@@ -103,8 +105,8 @@ def _remat(fn, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 def init_lm(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random parameters of the LM as a nested dict, drawn from ``gen`` on
-    ``gen.device``."""
-    L, dev = cfg.num_layers, gen.device
+    its device; with ``gen=None`` shape-only tensors on ``meta``."""
+    L, dev = cfg.num_layers, gen_device(gen)
     p: dict = {"embed": init_embed(cfg, gen), "final_norm": init_norm(cfg, dev)}
     if cfg.family == "ssm":  # rwkv6
         p["layers"] = {
@@ -355,7 +357,7 @@ def lm_decode(
         for p_l, s_l in zip(layers, _layers(cache, cfg.num_layers)):
             x, st = _rwkv_layer(cfg, p_l, s_l, x, use_ref=True)
             states.append(st)
-        new_cache = {k: torch.stack([st[k] for st in states])
+        new_cache = {k: stack([st[k] for st in states])
                      for k in ("S", "shift", "cmix_shift")}
     elif cfg.family == "hybrid":
         x, new_cache = _hybrid_decode(cfg, params, layers, x, positions,
@@ -370,7 +372,7 @@ def lm_decode(
             )
             ks.append(k_l)
             vs.append(v_l)
-        new_cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        new_cache = {"k": stack(ks), "v": stack(vs)}
     else:
         raise ValueError(cfg.family)
     x = apply_norm(cfg, params["final_norm"], x)
@@ -401,7 +403,7 @@ def _hybrid_decode(cfg, params, layers, x, positions, cache):
                               apply_norm(cfg, shared["ln2"], x))
             ks.append(k_l)
             vs.append(v_l)
-    new_cache = {k: torch.stack([st[k] for st in states]) for k in states[0]}
-    new_cache["shared_k"] = torch.stack(ks) if ks else cache["shared_k"]
-    new_cache["shared_v"] = torch.stack(vs) if vs else cache["shared_v"]
+    new_cache = {k: stack([st[k] for st in states]) for k in states[0]}
+    new_cache["shared_k"] = stack(ks) if ks else cache["shared_k"]
+    new_cache["shared_v"] = stack(vs) if vs else cache["shared_v"]
     return x, new_cache

@@ -7,6 +7,7 @@ from repro_torch.train.optimizer import (
 from repro_torch.train.step import (
     TrainConfig,
     init_train_state,
+    init_train_state_shapes,
     make_eval_step,
     make_train_step,
     train_state_to_device,
@@ -14,6 +15,6 @@ from repro_torch.train.step import (
 
 __all__ = [
     "OptimizerConfig", "TrainConfig", "adamw_update", "init_opt_state",
-    "init_train_state", "lr_at", "make_eval_step", "make_train_step",
+    "init_train_state", "init_train_state_shapes", "lr_at", "make_eval_step", "make_train_step",
     "train_state_to_device",
 ]

@@ -39,7 +39,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import init_model, loss_fn
+from repro_torch.models import init_model, init_model_shapes, loss_fn
 from repro_torch.models.params import (
     ParamTree,
     as_dict,
@@ -146,6 +146,15 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator | None = None,
     """Random parameters (:func:`repro_torch.models.init_model`) with
     gradients on, and a zero optimizer state, on ``device``."""
     params = init_model(cfg, generator, device=device)
+    params.requires_grad_(True)
+    return {"params": params, "opt": init_opt_state(params)}
+
+
+def init_train_state_shapes(cfg: ModelConfig) -> dict:
+    """The train state of :func:`init_train_state` on ``meta``: params
+    (grads on), ``m``, ``v`` and ``step`` with their shapes and dtypes and
+    no storage (the counterpart of ``jax.eval_shape(init_train_state)``)."""
+    params = init_model_shapes(cfg)
     params.requires_grad_(True)
     return {"params": params, "opt": init_opt_state(params)}
 
