@@ -45,18 +45,30 @@ script exits non-zero:
    bitwise (``project_kernel_vs_plain``): B = 1 at widths 8, 256 and 1024
    and at 5120 in segments with host compaction, batches with
    ``n_valid``, rows of only infinite-size jobs, of zero weights and
-   resumed at a level, a width that is not a bucket width and rows
-   stopped at a floor, with reruns and the launch counter; its time at
-   widths 16, 256 and 1024 beside its bound (the operations on the lanes
-   the work touches) and the plain version; one call of
-   ``vcluster_torch.water_fill`` and ``project_finish_times`` (numpy in
-   and out, the host round trip included) against the numpy loops' at 4
-   to 8192 live jobs (``vcluster_wrapped_calls``), with the "auto"
-   latch's threshold each kernel's numbers give beside the one in
-   ``core/vcluster.py``; then the stress cell once more under the profiler (the
-   device's busy share of the wall, the same launches as the timed run)
-   with its projection calls recorded, and the kernel timed on them
-   (graph-replayed) beside its bound and the plain version;
+   resumed at a level, a width that is not a bucket width, rows
+   stopped at a floor, a row of only infinite-size jobs, a row whose
+   jobs all finish in one event, ragged widths 33, 257 and 1025, B = 3
+   rows of different live counts and rows with lanes not present, of no
+   work and of zero weight, with reruns and the launch counter; its
+   one-launch segmented route (``project_segmented_cases``: 1024, 2048,
+   5120, B = 2) against the host-segmented plain path, every output
+   bitwise, and ``vcluster_torch.project_finish_times`` at 2048 jobs: one
+   call, one launch, the bits of the CPU's host segment loop; its time
+   at widths 16, 256, 1024 and 128 (graph-replayed) beside its bound (the
+   operations on the lanes the work touches) and the plain version, with
+   the events a call runs, µs per event and the split of an event's
+   cycles among its phases (the ``project_clocks`` build's stamps:
+   level rounds, divisions, least-time rounds, commits, compactions);
+   the segmented route at 2048 and 5120 lanes, one launch against the
+   host's segments; one call of ``vcluster_torch.water_fill`` and
+   ``project_finish_times`` (numpy in and out, the host round trip
+   included) against the numpy loops' at 4 to 8192 live jobs
+   (``vcluster_wrapped_calls``), with the "auto" latch's threshold each
+   kernel's numbers give beside the one in ``core/vcluster.py``; then the
+   stress cell once more under the profiler (the device's busy share of
+   the wall, the same launches as the timed run) with its projection
+   calls recorded, and the kernel timed on them (graph-replayed) beside
+   its bound, the plain version and the phase split;
 7. the scenario engine's entry points (``scenarios_cli``), at paper
    scale (100 FB jobs on 100 machines, nothing cut): (a)
    ``run_worker(paper-estimation-error, compute="accel",
@@ -1002,11 +1014,14 @@ def project_rows(rng, b, w, *, inf_frac=0.1, zero_w=0.1):
 def project_cases(seed: int = 2013):
     """(name, rows, floor) cases of the projection kernel against its
     plain version: B = 1 at widths 8, 256 and 1024, and at 5120 (run in
-    segments with host compaction, as ``vcluster_torch`` runs it);
-    batches with ``n_valid`` (a row with no present lane); a row of only
-    infinite-size jobs, a row of zero weights and a row resumed at a
+    segments with host compaction, as ``vcluster_torch.segments`` runs
+    it); batches with ``n_valid`` (a row with no present lane); a row of
+    only infinite-size jobs, a row of zero weights and a row resumed at a
     level lam0 > 0; a width that is not a bucket width; two rows stopped
-    at a floor."""
+    at a floor; a row of only infinite-size jobs on its own; a row whose
+    jobs all finish in one event; ragged widths 33, 257 and 1025; B = 3
+    rows of 300, 120 and 7 present lanes; rows with lanes not present,
+    of no work and of zero weight."""
     rng = np.random.default_rng(seed)
     cases = [(f"B1-W{w}", project_rows(rng, 1, w), 0) for w in (8, 256, 1024)]
     cases.append(("B1-W5120-segmented", project_rows(rng, 1, 5120), None))
@@ -1022,6 +1037,40 @@ def project_cases(seed: int = 2013):
     cases.append(("B4-W64-inf-zero-weights-lam0", rows, 0))
     cases.append(("B4-W77-padded", project_rows(rng, 4, 77), 0))
     cases.append(("B2-W1024-floor512", project_rows(rng, 2, 1024), 512))
+    rows = project_rows(rng, 1, 128)
+    rows[0][:] = np.inf
+    rows[1][rows[1] == 0.0] = 1.0  # every job live, none finishes
+    cases.append(("B1-W128-only-infinite", rows, 0))
+    rows = project_rows(rng, 1, 64)
+    rows[1][rows[1] == 0.0] = 1.0
+    rows[2][rows[2] == 0.0] = 1.0
+    rows[0] = 3.0 * rows[1]  # all capped, all done at now + 3
+    rows[4][:] = rows[1].sum() + 1.0
+    cases.append(("B1-W64-one-event", rows, 0))
+    for w in (33, 257, 1025):
+        cases.append((f"B1-W{w}-ragged", project_rows(rng, 1, w), 0))
+    rows = project_rows(rng, 3, 300)
+    for i, nv in enumerate((300, 120, 7)):
+        rows[3][i, nv:] = False
+    cases.append(("B3-W300-live-counts", rows, 0))
+    rows = project_rows(rng, 2, 128)
+    rows[3][rng.random((2, 128)) < 0.3] = False
+    rows[0][rng.random((2, 128)) < 0.1] = 0.0
+    rows[2][rng.random((2, 128)) < 0.3] = 0.0
+    cases.append(("B2-W128-dead-zero-weight", rows, 0))
+    return cases
+
+
+def project_segmented_cases(seed: int = 2025):
+    """(name, rows) cases of the kernel's one-launch segmented route
+    against the host-segmented plain path: B = 1 at widths 1024, 2048
+    and 5120, and B = 2 rows of 2048 lanes, the second with 700 present."""
+    rng = np.random.default_rng(seed)
+    cases = [(f"B1-W{w}-device-segments", project_rows(rng, 1, w))
+             for w in (1024, 2048, 5120)]
+    rows = project_rows(rng, 2, 2048)
+    rows[3][1, 700:] = False
+    cases.append(("B2-W2048-device-segments", rows))
     return cases
 
 
@@ -1044,11 +1093,19 @@ def carry_equal(got, want) -> bool:
     return True
 
 
+def fin_err(got, want) -> float:
+    """The largest difference of the finite finish times of two carries."""
+    fin = torch.isfinite(want[2])
+    if not bool(fin.any()):
+        return 0.0
+    return (got[2][fin] - want[2][fin]).abs().max().item()
+
+
 def project_segments(pj, args):
     """A B = 1 row in segments through ``vcluster_torch.segments``, the
-    loop ``project_finish_times`` runs: each segment's kernel call
-    repeated and held bitwise against the plain version.  Returns the
-    segments' calls ``(args, floor)``."""
+    host loop ``project_finish_times`` runs on the CPU: each segment's
+    kernel call repeated and held bitwise against the plain version.
+    Returns the segments' calls ``(args, floor, False)``."""
     from repro_torch.core import vcluster_torch as vt
 
     calls = []
@@ -1058,26 +1115,49 @@ def project_segments(pj, args):
         if not (carry_equal(got, want) and carry_equal(again, got)):
             raise AssertionError(f"segment {len(calls)} at width "
                                  f"{seg[0].shape[1]}: kernel != plain")
-        calls.append((seg, floor))
+        calls.append((seg, floor, False))
     return calls
+
+
+def project_segmented_check(pj, args) -> None:
+    """The kernel's one-launch segmented route on CUDA tensors ``args``
+    against the host-segmented plain path (``project_segmented_reference``
+    on the same device), bitwise on every output, with a bitwise rerun and
+    one launch a call."""
+    before = pj.launches
+    got = pj.project_cuda(*args, 0, segmented=True)
+    again = pj.project_cuda(*args, 0, segmented=True)
+    torch.cuda.synchronize()
+    if pj.launches != before + 2:
+        raise AssertionError("segmented route: not one launch a call")
+    want = pj.project_segmented_reference(*args)
+    if not carry_equal(got, want):
+        raise AssertionError(f"segmented route != host segments "
+                             f"({fin_err(got, want)})")
+    if not carry_equal(again, got):
+        raise AssertionError("segmented route: rerun not bitwise equal")
 
 
 def proj_bound(calls) -> tuple[float, str, int, int]:
     """(bound_ms, bound_by, bytes, ops) over projection calls ``(args,
-    floor)``: each row's rem, caps, ws (8 bytes a lane), present (1) and
-    slots, now, lam0 read once, and rem, fin (8), live (1), t, lam, n_live
-    (8) and run (1) written once; the lanes that the level steps and
-    events these inputs need touch (counted by the plain version on the
-    CPU) at ``PROJ_OPS_PER_*`` operations each."""
+    floor, segmented)``: each row's rem, caps, ws (8 bytes a lane),
+    present (1) and slots, now, lam0 read once, and rem, fin (8), live
+    (1), t, lam, n_live (8) and run (1) written once; the lanes that the
+    level steps and events these inputs need touch (counted by the plain
+    version on the CPU, in segments where the call is segmented) at
+    ``PROJ_OPS_PER_*`` operations each."""
     from repro_torch.core import projection as pj
 
     nbytes = ops = 0
-    for args, floor in calls:
-        cpu, w = pj._padded(*[a.cpu() for a in args], floor)
-        b = cpu[0].shape[0]
+    for args, floor, segmented in calls:
+        cpu = [a.cpu() for a in args]
+        b, w = cpu[0].shape
         nbytes += b * (w * (25 + 17) + 24 + 25)
         counts = {}
-        pj._project_rows(*cpu, counts=counts)
+        if segmented:
+            pj.project_segmented_reference(*cpu, counts=counts)
+        else:
+            pj.project_reference(*cpu, floor, counts=counts)
         ops += (counts.get("level_lanes", 0) * PROJ_OPS_PER_PART_LANE_LEVEL
                 + counts.get("event_part_lanes", 0)
                 * PROJ_OPS_PER_PART_LANE_EVENT
@@ -1088,6 +1168,39 @@ def proj_bound(calls) -> tuple[float, str, int, int]:
     if t_bytes >= t_ops:
         return t_bytes, "bytes", nbytes, ops
     return t_ops, "operations", nbytes, ops
+
+
+def project_split(calls) -> dict:
+    """Where an event's cycles go, over projection calls ``(args, floor,
+    segmented)``: each call once through the ``project_clocks`` build
+    (its carry must equal the main build's bitwise), every row's phase
+    cycles summed (``projection.CLOCK_FIELDS``; thread 0's ``clock64``
+    stamps).  Returns the events and level steps per call, the cycles per
+    event of each phase and of the whole kernel, and each phase's share of
+    the kernel's cycles."""
+    from repro_torch.core import projection as pj
+
+    fields = pj.CLOCK_FIELDS
+    total = dict.fromkeys(fields, 0)
+    for args, floor, segmented in calls:
+        clocks = torch.zeros((args[0].shape[0], len(fields)),
+                             dtype=torch.int64, device=args[0].device)
+        got = pj.project_cuda(*args, floor, segmented=segmented,
+                              clocks=clocks)
+        want = pj.project_cuda(*args, floor, segmented=segmented)
+        if not carry_equal(got, want):
+            raise AssertionError("the clocks build's carry != the kernel's")
+        for f, v in zip(fields, clocks.sum(dim=0).tolist()):
+            total[f] += v
+    events = max(1, total["events"])
+    phases = fields[2:]
+    return {
+        "events_per_call": total["events"] / len(calls),
+        "level_steps_per_call": total["level_steps"] / len(calls),
+        "cycles_per_event": {f: total[f] / events for f in phases},
+        "share_of_cycles": {f: total[f] / max(1, total["total"])
+                            for f in phases[:-1]},
+    }
 
 
 def des_counts() -> dict:
@@ -1227,23 +1340,23 @@ def profiled_stress(stress: dict):
     the profiler: the device's busy share of the wall, and every
     projection's padded inputs recorded (the kernel only reads them, and
     nothing writes to them after the call).  The launches must equal the
-    timed run's ``stress``.  Returns the recorded calls ``(args,
-    floor)``."""
+    timed run's ``stress``.  Returns the recorded calls ``(args, floor,
+    segmented)``."""
     from repro_torch.core import projection as pj
 
     captured = []
     project = pj.project
 
-    def record(*args):
-        captured.append((list(args[:7]), args[7]))
-        return project(*args)
+    def record(*args, segmented=False):
+        captured.append((list(args[:7]), args[7], segmented))
+        return project(*args, segmented=segmented)
 
     reset_counts()
     pj.project = record
     try:
         profiled = profile_device(
             lambda: stress_cell("torch"), 1,
-            {"project_share_of_device": "project_rows",
+            {"project_share_of_device": ("project_narrow", "project_rows"),
              "k1_share_of_device": "waterfill"})
     finally:
         pj.project = project
@@ -1251,7 +1364,8 @@ def profiled_stress(stress: dict):
         raise AssertionError(f"profiled stress run: launches {des_counts()} "
                              f"!= {stress}")
     emit("des_stress_profile", widest_projection=max(
-        a[0].shape[1] for a, _ in captured), **profiled)
+        a[0].shape[1] for a, _, _ in captured),
+        segmented_projections=sum(seg for _, _, seg in captured), **profiled)
     return captured
 
 
@@ -1320,6 +1434,7 @@ def phase_vcluster_wrapped_calls():
 
 def phase_project_kernel_vs_plain(des_launches: dict):
     from repro_torch.core import projection as pj
+    from repro_torch.core import vcluster_torch as vt
 
     dev = torch.device("cuda")
     for name, rows, floor in project_cases():
@@ -1328,7 +1443,8 @@ def phase_project_kernel_vs_plain(des_launches: dict):
         if floor is None:
             segs = project_segments(pj, args)
             emit("project_kernel_vs_plain", case=name, segments=len(segs),
-                 widths=[a[0].shape[1] for a, _ in segs], bitwise_equal=True)
+                 widths=[a[0].shape[1] for a, _, _ in segs],
+                 bitwise_equal=True)
             continue
         got = pj.project_cuda(*args, floor)
         again = pj.project_cuda(*args, floor)
@@ -1338,49 +1454,105 @@ def phase_project_kernel_vs_plain(des_launches: dict):
             raise AssertionError(f"{name}: launch counter did not advance by "
                                  "one per call")
         if not carry_equal(got, want):
-            fin = torch.isfinite(want[2])
-            err = (got[2][fin] - want[2][fin]).abs().max().item()
-            raise AssertionError(f"{name}: kernel != plain ({err})")
+            raise AssertionError(f"{name}: kernel != plain "
+                                 f"({fin_err(got, want)})")
         if not carry_equal(again, got):
             raise AssertionError(f"{name}: kernel rerun not bitwise equal")
         emit("project_kernel_vs_plain", case=name, shape=list(args[0].shape),
              floor=floor, bitwise_equal=True, max_abs_err=0.0,
              n_live=got[5].tolist(), run=got[6].tolist())
+    # The segmented route: one launch against the host's segments.
+    for name, rows in project_segmented_cases():
+        args = project_tensors(rows, dev)
+        project_segmented_check(pj, args)
+        emit("project_kernel_vs_plain", case=name, shape=list(args[0].shape),
+             segmented=True, launches_per_call=1, bitwise_equal=True,
+             max_abs_err=0.0)
+    # ... and through the entry point: one call, one launch, the bits of
+    # the host's segment loop on the CPU.
+    rem, caps, ws, _, slots, now, _ = project_segmented_cases()[1][1]
+    one = (rem[0], caps[0], ws[0], float(slots[0]), float(now[0]))
+    calls, launches = vt.calls["project"], pj.launches
+    got = vt.project_finish_times(*one, device="cuda")
+    made = (vt.calls["project"] - calls, pj.launches - launches)
+    want = vt.project_finish_times(*one, device="cpu")
+    if made != (1, 1) or got.tobytes() != want.tobytes():
+        raise AssertionError(f"project_finish_times at 2048 jobs: calls and "
+                             f"launches {made}, equal to the CPU's "
+                             f"{got.tobytes() == want.tobytes()}")
+    emit("project_kernel_vs_plain", case="project_finish_times-2048",
+         calls_and_launches=list(made), bitwise_equal_to_cpu=True)
 
-    # Time at widths 16, 256 and 1024 (B = 1, random rows).
+    # Time at widths 16, 256 and 1024 (B = 1, random rows), with the
+    # events a call runs and where an event's cycles go.
     rng = np.random.default_rng(7)
     by_width = {}
-    for w in (16, 256, 1024):
+    for w in (16, 256, 1024, 128):  # 128 drawn last: the others keep their rows
         args = project_tensors(project_rows(rng, 1, w), dev)
         ms = graph_ms(lambda: [pj.project_cuda(*args) for _ in range(10)]) / 10
         plain_ms = cuda_ms(lambda: pj.project_reference(*args), 1)
-        bound_ms, bound_by, nbytes, ops = proj_bound([(args, 0)])
+        bound_ms, bound_by, nbytes, ops = proj_bound([(args, 0, False)])
+        split = project_split([(args, 0, False)])
         by_width[w] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+                       "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+                       "us_per_event": 1e3 * ms / max(
+                           1.0, split["events_per_call"]), **split}
     emit("project_timing", by_width=by_width)
+    # The segmented route at 2048 and 5120 lanes: one launch (graph-
+    # replayed) against the host's segments (a launch, a copy back and a
+    # compaction each), both host wall to a synchronize.
+    segmented = {}
+    for name, rows in project_segmented_cases()[1:3]:
+        args = project_tensors(rows, dev)
+
+        def host_segments():
+            for _ in vt.segments(args):
+                pass
+            torch.cuda.synchronize()
+
+        def one_launch():
+            pj.project_cuda(*args, 0, segmented=True)
+            torch.cuda.synchronize()
+
+        segmented[args[0].shape[1]] = {
+            "ms": graph_ms(lambda: pj.project_cuda(*args, 0, segmented=True)),
+            "one_launch_wall_us": wrapped_call_us(one_launch, 5),
+            "host_segments_wall_us": wrapped_call_us(host_segments, 5),
+            "host_segments": sum(1 for _ in vt.segments(args)),
+            **project_split([(args, 0, True)])}
+    emit("project_timing", segmented_route=segmented)
 
     phase_vcluster_wrapped_calls()
     # On the stress cell's own calls: all of them graph-replayed, and an
     # even subset beside the plain version and the bound.
     calls = profiled_stress(des_launches["stress"])
-    all_ms = graph_ms(lambda: [pj.project_cuda(*a, f) for a, f in calls],
-                      replays=3) / len(calls)
+
+    def replay(chosen):
+        return [pj.project_cuda(*a, f, segmented=s) for a, f, s in chosen]
+
+    all_ms = graph_ms(lambda: replay(calls), replays=3) / len(calls)
     subset = calls[::max(1, len(calls) // 24)]
-    ms = graph_ms(lambda: [pj.project_cuda(*a, f) for a, f in subset]) \
+    ms = graph_ms(lambda: replay(subset)) / len(subset)
+    plain_ms = cuda_ms(lambda: [
+        (pj.project_segmented_reference(*a) if s
+         else pj.project_reference(*a, f)) for a, f, s in subset], 1) \
         / len(subset)
-    plain_ms = cuda_ms(lambda: [pj.project_reference(*a, f)
-                                for a, f in subset], 1) / len(subset)
-    check = [(pj.project_cuda(*a, f), pj.project_reference(*a, f))
-             for a, f in subset]
+    check = [(pj.project_cuda(*a, f, segmented=s),
+              pj.project_segmented_reference(*a) if s
+              else pj.project_reference(*a, f)) for a, f, s in subset]
     if not all(carry_equal(g, w) for g, w in check):
         raise AssertionError("stress cell's captured calls: kernel != plain")
     bound_total, bound_by, nbytes, ops = proj_bound(subset)
-    widths = [a[0].shape[1] for a, _ in calls]
+    split = project_split(calls)
+    widths = [a[0].shape[1] for a, _, _ in calls]
     emit("project_timing", cell="stress", calls=len(calls),
          widths={str(w): widths.count(w) for w in sorted(set(widths))},
+         segmented_calls=sum(s for _, _, s in calls),
          ms_all_calls=all_ms, subset=len(subset), ms=ms, plain_ms=plain_ms,
          bound_ms=bound_total / len(subset), bound_by=bound_by,
-         bytes_per_call=nbytes / len(subset), ops_per_call=ops / len(subset))
+         bytes_per_call=nbytes / len(subset), ops_per_call=ops / len(subset),
+         us_per_event=1e3 * all_ms / max(1.0, split["events_per_call"]),
+         **split)
 
     launches = sum(c["project_launches"] for c in des_launches.values())
     return {
@@ -1399,7 +1571,10 @@ def phase_project_kernel_vs_plain(des_launches: dict):
         "bound_by": bound_by,
         "library_ms": None,
         "ms_all_stress_calls": all_ms,
-        "by_width": by_width,
+        "by_width": {w: {k: v for k, v in r.items()
+                         if k in ("ms", "plain_ms", "bound_ms",
+                                  "events_per_call", "us_per_event")}
+                     for w, r in by_width.items()},
     }
 
 # ---------------------------------------------------------------------------

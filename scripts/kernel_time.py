@@ -1,6 +1,6 @@
 """The timing loop shared by ``k3_time.py`` and ``k4_time.py``, the
-``--trees`` runner those two and ``k1_time.py`` share, and the CUDA-graph
-helpers of ``k1_time.py``.
+``--trees`` runner those two, ``k1_time.py`` and ``p_time.py`` share, and
+the CUDA-graph helpers of ``k1_time.py`` and ``p_time.py``.
 
 Each of those scripts supplies one kernel's inputs and its call; this
 module times it and runs it once per checkout, in turns.  It is imported,

@@ -39,9 +39,13 @@ COMMON_FLAGS = (
 #: kernel name -> (source, relative to the package; flags beyond
 #: :data:`COMMON_FLAGS`).  The water-fill and the projection keep products
 #: out of FMAs so they agree bitwise with their plain versions.
+#: ``project_clocks`` is the projection with its per-phase cycle stamps
+#: (for timing only; the main path runs ``project``).
 KERNELS: dict[str, tuple[str, tuple[str, ...]]] = {
     "waterfill": ("accel/csrc/waterfill.cu", ("-fmad=false",)),
     "project": ("core/csrc/project.cu", ("-fmad=false",)),
+    "project_clocks": ("core/csrc/project.cu",
+                       ("-fmad=false", "-DPROJECT_PHASE_CLOCKS")),
     "flash_attention": ("kernels/flash_attention/csrc/flash_attention.cu", ()),
     "flash_attention_tc": (
         "kernels/flash_attention/csrc/flash_attention_tc.cu", ()),

@@ -10,8 +10,9 @@ numpy out, on a torch device.
 * :func:`project_finish_times` — the processor-sharing forward
   simulation behind HFSP's schedule order, through the projection kernel
   (:mod:`repro_torch.core.projection`) with a warm-started water level,
-  run in :func:`segments` that compact the survivors into shrinking
-  buckets;
+  in segments that compact the survivors into shrinking buckets: on a
+  CUDA device inside one launch (the kernel's segmented route), on the
+  CPU in :func:`segments`, one plain call each;
 * :func:`project_finish_times_batch` — B projections in one launch.
 
 Shape contract: inputs are padded to :func:`_bucket` widths (pow2 from 8
@@ -123,43 +124,31 @@ def _project_args(rem_p, caps_p, ws_p, present, slots_b, now_b, lam_b, dev):
 
 
 @torch.inference_mode()
-def _project(args, floor):
+def _project(args, floor, segmented=False):
     """One projection kernel call on device tensors; returns the carry."""
     calls["project"] += 1
-    return projection.project(*args, floor)
+    return projection.project(*args, floor, segmented=segmented)
 
 
 def segments(args):
     """Run one row of the projection (device tensors ``rem, caps, ws,
     present, slots, now, lam0`` of shape ``(1, W)`` and ``(1,)``) in
-    segments: at bucket widths of 1024 and more the kernel stops when the
-    live count falls to half the width, the survivors are compacted into
-    a narrower row, and the simulation resumes with the carried clock and
-    water level.  Yields ``(lanes, args, floor, carry)`` per segment,
-    where ``lanes`` (an int64 tensor on the row's device) gives each
-    lane's index in the first row."""
-    lanes = torch.arange(args[0].shape[1], device=args[0].device)
-    while True:
-        width = _bucket(args[0].shape[1])
-        floor = width // 2 if width >= 1024 else 0
-        carry = _project(args, floor)
-        yield lanes, args, floor, carry
-        t, rem, _, live, lam, n_live, run = carry
-        if floor == 0 or int(n_live[0]) == 0 or not bool(run[0]):
-            return
-        alive = torch.nonzero(live[0]).flatten()
-        lanes = lanes[alive]
-        args = [rem[:, alive], args[1][:, alive], args[2][:, alive],
-                args[3][:, alive], args[4], t, lam]
+    :func:`~repro_torch.core.projection.segments`, one call each: at
+    bucket widths of 1024 and more a call stops when the live count falls
+    to half the width, the host compacts the survivors into a narrower
+    row, and the next call resumes with the carried clock and water
+    level.  Yields ``(lanes, args, floor, carry)`` per segment, where
+    ``lanes`` gives each lane's index in the first row."""
+    return projection.segments(args, _project)
 
 
 def project_finish_times(rem: np.ndarray, caps: np.ndarray, ws: np.ndarray,
                          slots: float, now: float,
                          device="cuda") -> np.ndarray:
     """PS finish times; drop-in for ``vcluster.project_finish_times``
-    (array-shaped: callers keep their own id <-> index mapping).  Runs in
-    :func:`segments`, so rows of 1024 jobs and more shrink as their jobs
-    finish."""
+    (array-shaped: callers keep their own id <-> index mapping).  Rows of
+    1024 jobs and more shrink in segments as their jobs finish: on a CUDA
+    device in one launch, on the CPU in :func:`segments`."""
     dev = resolve_device(device)
     n = len(rem)
     if n == 0:
@@ -173,6 +162,8 @@ def project_finish_times(rem: np.ndarray, caps: np.ndarray, ws: np.ndarray,
         np.pad(np.asarray(caps, np.float64), pad)[None],
         np.pad(np.asarray(ws, np.float64), pad)[None], present,
         np.array([float(slots)]), np.array([float(now)]), np.zeros(1), dev)
+    if dev.type == "cuda":
+        return _project(args, 0, segmented=True)[2][0, :n].cpu().numpy()
     fin_out = np.empty(width)
     for lanes, _, _, carry in segments(args):
         fin_out[lanes.cpu().numpy()] = carry[2][0].cpu().numpy()

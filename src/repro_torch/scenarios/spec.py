@@ -32,6 +32,14 @@ from dataclasses import dataclass, field, fields, is_dataclass, replace
 SPEC_VERSION = 1
 
 WORKLOAD_KINDS = ("fb", "fb_scaled", "ml", "trace")
+#: The built-in scheduling disciplines (informational; the authoritative
+#: set is the discipline registry, ``repro_torch.core.disciplines.names()``,
+#: which third-party code extends at runtime).  Policy names are NOT
+#: validated at spec construction — a spec is plain data and must be
+#: able to name a discipline that is registered later; resolution (and
+#: the unknown-name error listing what IS registered) happens in
+#: :func:`repro_torch.scenarios.runner.build_scheduler`.
+POLICIES = ("fifo", "fair", "hfsp", "srpt", "las", "psbs")
 PREEMPTIONS = ("eager", "wait", "kill")
 
 
@@ -333,6 +341,20 @@ def cell_id(combo: tuple[tuple[str, object], ...]) -> str:
     if not combo:
         return "base"
     return ",".join(f"{k}={v}" for k, v in sorted(combo))
+
+
+def parse_cell_id(cid: str) -> dict[str, str]:
+    """Inverse of :func:`cell_id`: {dotted-path: value-as-string}.
+
+    The single decoder for every cell-id consumer (benchmarks, examples)
+    — values are returned as strings, the caller casts.  Note the format
+    does not escape ``,``/``=``; axes whose *values* contain them (e.g. a
+    swept trace_path) are not representable and a sweep over them should
+    key cells differently.
+    """
+    if cid == "base":
+        return {}
+    return dict(part.split("=", 1) for part in cid.split(","))
 
 
 def _product(grid: tuple[tuple[str, tuple], ...]):

@@ -66,8 +66,16 @@ that has only the port's dependencies:
   widths 8, 256, 1024 and 5120, the last in segments with host
   compaction; batches with ``n_valid``; rows of only infinite-size jobs,
   of zero weights and resumed at a level; a width that is not a bucket
-  width; rows stopped at a floor), with bitwise reruns and one launch per
-  call (the plain version is held to the reference on the CPU in
+  width; rows stopped at a floor; a row of only infinite-size jobs, a
+  row whose jobs all finish in one event, ragged widths 33, 257 and
+  1025, B = 3 rows of different live counts, rows with lanes not
+  present, of no work and of zero weight), with bitwise reruns and one
+  launch per call; its one-launch segmented route against the
+  host-segmented plain path (``project_segmented_cases``: widths 1024,
+  2048 and 5120, B = 2 rows), every output bitwise, and
+  ``vcluster_torch.project_finish_times`` on the card at 1024, 2048 and
+  5120 jobs: one call, one launch, the bits of its host segment loop on
+  the CPU (the plain versions are held to the reference on the CPU in
   tests/test_torch_vcluster.py);
 * one accel batch of the sweep worker (``run_worker(compute="accel")``)
   on the card: one K1 launch per step of the hfsp batch, and the stored
@@ -555,6 +563,34 @@ def test_projection_kernel_matches_plain_version_on_card(cuda, name):
     assert pj.launches == before + 2
     assert SMOKE.carry_equal(got, want)
     assert SMOKE.carry_equal(again, got)
+
+
+PROJECT_SEGMENTED_CASES = dict(SMOKE.project_segmented_cases())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(PROJECT_SEGMENTED_CASES))
+def test_projection_segmented_route_matches_host_segments_on_card(cuda, name):
+    from repro_torch.core import projection as pj
+
+    args = SMOKE.project_tensors(PROJECT_SEGMENTED_CASES[name], cuda)
+    SMOKE.project_segmented_check(pj, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 2048, 5120])
+def test_project_finish_times_is_one_launch_on_card(cuda, n):
+    from repro_torch.core import projection as pj
+    from repro_torch.core import vcluster_torch as vt
+
+    rem, caps, ws, _, slots, now, _ = SMOKE.project_rows(
+        np.random.default_rng(n), 1, n)
+    one = (rem[0], caps[0], ws[0], float(slots[0]), float(now[0]))
+    calls, launches = vt.calls["project"], pj.launches
+    got = vt.project_finish_times(*one, device="cuda")
+    assert (vt.calls["project"] - calls, pj.launches - launches) == (1, 1)
+    want = vt.project_finish_times(*one, device="cpu")
+    assert got.tobytes() == want.tobytes()
 
 
 @pytest.mark.cuda

@@ -11,6 +11,11 @@ numpy loops and repro.core.vcluster_jax).
 * the fixed-shape contract: batch rows equal single calls bitwise,
   padding is bitwise neutral, and the segmented projection (``floor`` >
   0 with host compaction) equals one unsegmented call at width 2048;
+* ``projection.project_segmented_reference``, the plain version that the
+  kernel's one-launch segmented route is held to on the card, equals the
+  host's segment loop (``project_finish_times(device="cpu")``) bitwise
+  and the numpy ``_project_array`` at ``rtol=1e-9``, on rows of 1025 and
+  2048 jobs and on B = 2 rows (each its own segment loop);
 * ``VirtualCluster(backend="torch")``: what-if batches price exactly like
   ``set_remaining`` / ``set_size``, the "auto" latch, and the device
   rule (a CUDA request without CUDA raises; the kernel wrapper refuses
@@ -211,6 +216,64 @@ def test_segmented_projection_equals_one_call_at_width_2048():
     finite = np.isfinite(one)
     assert (finite == np.isfinite(seg)).all() and finite.sum() > 1900
     np.testing.assert_allclose(seg[finite], one[finite], rtol=1e-12)
+
+
+def _segment_row(rng, n):
+    """A row of n jobs with infinite-size jobs, dead lanes (cap 0) and
+    zero weights."""
+    rem = rng.uniform(1.0, 500.0, n)
+    rem[rng.random(n) < 0.05] = np.inf
+    caps = rng.integers(0, 20, n).astype(np.float64)
+    ws = rng.uniform(0.5, 2.0, n)
+    ws[rng.random(n) < 0.05] = 0.0
+    return rem, caps, ws
+
+
+def _row_tensors(rem, caps, ws, slots, now):
+    t = lambda x: torch.as_tensor(np.atleast_2d(x), dtype=torch.float64)
+    b = t(rem).shape[0]
+    return (t(rem), t(caps), t(ws), torch.ones(t(rem).shape, dtype=torch.bool),
+            torch.full((b,), slots, dtype=torch.float64),
+            torch.full((b,), now, dtype=torch.float64),
+            torch.zeros(b, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("n", [1025, 2048])
+def test_segmented_reference_equals_host_segments(n):
+    rng = np.random.default_rng(n)
+    rem, caps, ws = _segment_row(rng, n)
+    slots, now = float(n // 3), 5.0
+    before = vcluster_torch.calls["project"]
+    host = vcluster_torch.project_finish_times(rem, caps, ws, slots, now,
+                                               device="cpu")
+    assert vcluster_torch.calls["project"] - before >= 2  # in segments
+    args = _row_tensors(rem, caps, ws, slots, now)
+    carry = projection.project_segmented_reference(*args)
+    assert _bits(carry[2][0].numpy()) == _bits(host)
+    assert int(carry[5][0]) == int(np.isinf(host).sum()) - int(
+        ((caps == 0) & np.isinf(host)).sum())  # the infinite-size jobs left
+    again = projection.project(*args, 0, segmented=True)
+    for g, w in zip(again, carry):
+        assert torch.equal(g, w)
+    _assert_finish_close(host, _project_array(rem.copy(), caps, ws, slots,
+                                              now))
+
+
+def test_segmented_reference_rows_are_independent():
+    """B = 2 rows of different live counts (one with lanes not present):
+    each row's carry equals that row's own segmented projection."""
+    rng = np.random.default_rng(3)
+    rows = [_segment_row(rng, 1100) for _ in range(2)]
+    args = list(_row_tensors(*(np.stack(x) for x in zip(*rows)), 400.0, 2.0))
+    args[3][1, 600:] = False
+    carry = projection.project_segmented_reference(*args)
+    for i in range(2):
+        one = projection.project_segmented_reference(
+            *[x[i:i + 1] for x in args])
+        for g, w in zip(carry, one):
+            assert torch.equal(g[i:i + 1], w)
+    assert not carry[3][1, 600:].any()
+    assert (carry[2][1, 600:] == 2.0).all()  # not present: fin = now
 
 
 def test_projection_carry_and_floor():
