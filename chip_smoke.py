@@ -109,21 +109,24 @@ script exits non-zero:
    first 256 steps at 16 x 128 and the wide cells' at 4 x 1024), as
    pairs and as single-phase calls, graph-replayed, beside the bound of
    the work, the host time per step and the floor any launch pays (a
-   one-element ``add_``); the main path's hfsp batch once more under the
-   profiler (one K1 launch per step by name), the kernels of one hfsp step
+   one-element ``add_``); the main path's hfsp batch once more, each
+   chunk of 512 steps captured in a CUDA graph whose kernel nodes the
+   libcuda names (one K1 launch per step by name), the kernels of
+   one hfsp step
    counted in a CUDA graph, and a short profile of the hfsp step;
 10. the flash attention kernel (K2) against its plain PyTorch version on
    the card, f32 (the CUDA-core kernel ``flash_fwd``, atol = rtol = 2e-5)
    and bf16 (the tensor-core kernel ``flash_tc``, both atol 2e-2 and
    atol 4e-3 with rtol 1.6e-2), on the shapes of tests/test_kernels.py,
    three windows, a window over eight 128-row kv tiles, a non-causal call,
-   olmo-1b's (4, 16, 4096, 128), starcoder2-3b's GQA (1, 24 -> 2, 2048,
+   olmo-1b's (4, 16, 4096, 128), starcoder2-3b's GQA (4, 24 -> 2, 4096,
    128), head dim 80 (a small GQA case and zamba2-2.7b's (4, 32, 4096,
-   80)), granite-moe-3b's (4, 24 -> 8, 4096, 64) and llava-next-34b's
-   (1, 56 -> 8, 4096, 128), with bitwise reruns and both launch counters;
+   80)), granite-moe-3b's (4, 24 -> 8, 4096, 64), llava-next-34b's
+   (1, 56 -> 8, 4096, 128) and command-r-35b's (4, 64 -> 8, 4096, 128),
+   with bitwise reruns and both launch counters;
    besides the elementwise bounds, the relative error of every output row
    of every head must stay within ``FLASH_ROW_REL`` (1e-4 f32, 1.6e-2
-   bf16); at the five model shapes, outputs of deliberately wrong
+   bf16); at the six model shapes, outputs of deliberately wrong
    attention (a kv tile dropped, the diagonal key dropped past row 1024,
    the last kv tile dropped for the last 128 rows of one head) must fail
    both the bf16 tolerance and the row bound, with the margins printed;
@@ -267,13 +270,12 @@ script exits non-zero:
     (``FAMILIES`` says what was cut and why), its weights freed before
     the next one's: gemma2-2b (nothing cut; 2 x 8192, the plain route),
     whisper-base (nothing cut; 4 x 1500 frame embeddings, 4 x 448
-    decoder tokens, the plain route), command-r-35b (2 of 40 layers; 4 x
-    4096, K2 2 per prefill), llava-next-34b (2 of 60 layers; 2880 patch
-    embeddings and 1216 text tokens, K2 2 per prefill) and
-    llama4-scout-17b-a16e (2 of 48 layers; 4 x 4096, top-1 with the
-    shared expert, K2 2 per prefill): prefill cold and warm, K2's
-    launches per prefill by counter, peak memory, ``greedy_generate`` for
-    4 x (8 + 8) and finite prefill and decode logits;
+    decoder tokens, the plain route) and llama4-scout-17b-a16e (2 of 48
+    layers: 213.5 GB even in bf16; 4 x 4096, top-1 with the shared
+    expert, K2 2 per prefill): prefill cold and warm, K2's launches per
+    prefill by counter, peak memory, ``greedy_generate`` for 4 x (64 + 32)
+    (``GENERATE``, as in ``full_depth_serve``), finite prefill and decode
+    logits and a profile of 2 warm decode steps;
 28. the multi-device layout and the dry-run (``dryrun_main_path``): (a)
     ``python -m repro_torch.launch.dryrun`` on the host, with no card, for
     olmo-1b x train_4k on both production meshes, granite-moe-3b x
@@ -295,7 +297,32 @@ script exits non-zero:
 29. K2 at granite-moe-3b's head dim 64 (4, 24 -> 8, 4096, 64) beside its
     bound, its plain version and ``F.scaled_dot_product_attention``, with
     the same fields as phase 13;
-30. the ``{"kernels": [...]}`` line (K1, K2, K3, K4 and the projection
+30. bf16 weight storage (``bf16_storage_check``): command-r-35b and
+    llava-next-34b cut to 2 layers, f32 weights from ``--seed``, prefill
+    logits in bf16 with the tensor-core K2 in both layers (1 x 4096, and
+    1216 text tokens after 2880 patch embeddings), then the same tree cast
+    to bf16 (``param_dtype="bfloat16"``) and the prefill again: the
+    logits must be bitwise equal;
+31. the configs at their published depth (``full_depth_serve``, after
+    every phase that holds large tensors; ``FULL_DEPTH``), each through
+    ``make_prefill_step(use_flash=True, last_token_only=True)`` and
+    ``greedy_generate``, its weights freed before the next one's:
+    starcoder2-3b (30 layers, f32 weights; 4 x 4096, 30 tensor-core K2
+    launches per prefill), command-r-35b (40 layers, weights stored in
+    bf16; 4 x 4096, 40 a prefill) and llava-next-34b (60 layers, weights
+    stored in bf16; 2880 patch embeddings and 1216 text tokens, 60 a
+    prefill): parameters, init seconds and peak memory, prefill cold and
+    warm (seconds, tokens/s, K2 launches by counter), ``greedy_generate``
+    for 4 requests of 64 prompt and 32 new tokens (new tokens/s), one
+    decode step's logits at position 0, a profile of the 2 warm decode
+    steps after it (the device's busy share, its time a step and the top
+    kernels), finite logits, greedy outputs in range and peak memory below
+    the card's total (``torch.cuda.mem_get_info``); it raises, and never
+    cuts a layer, where a model does not fit;
+32. K2 at command-r-35b's prefill call (4, 64 -> 8, 4096, 128) beside its
+    bound, its plain version and ``F.scaled_dot_product_attention``, with
+    the same fields as phase 13;
+33. the ``{"kernels": [...]}`` line (K1, K2, K3, K4 and the projection
     kernel), the card's name and power limit, and the final ``{"ok":
     true, ...}`` line.
 
@@ -304,7 +331,8 @@ path's two cells, the scenario worker's batch, the CLI sweep's hfsp
 cell, the "auto" latch's cell, the live service's session, olmo-1b
 serving, rwkv6 serving, zamba2 serving, olmo-1b training, the gang
 runtime, ml-workload's cells, granite-moe-3b serving, each config of
-``families_serve``, the dry-run's olmo-1b prefill on the plain route)
+``families_serve``, the dry-run's olmo-1b prefill on the plain route,
+each config of ``full_depth_serve``)
 runs with every kernel's launch count set to 0 just before it and read
 just after.
 """
@@ -313,6 +341,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -392,11 +421,58 @@ def graph_ms(fn, replays: int = 10) -> float:
     return start.elapsed_time(end) / replays
 
 
-def graph_kernels(fn) -> int:
-    """The kernels ``fn()`` launches: the kernel nodes of a CUDA graph it
-    is captured in, as the CUDA driver API reports them (no profiler)."""
-    import ctypes
+class KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` of libcuda's graph API."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_bytes", ctypes.c_uint),
+                ("kernel_params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p),
+                ("ctx", ctypes.c_void_p)]
 
+
+def graph_kernel_names(graph) -> list[str]:
+    """The (mangled) names of the kernel nodes of ``graph``, a
+    ``torch.cuda.CUDAGraph(keep_graph=True)`` after its capture, as the
+    libcuda's graph API reports them (no profiler)."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} failed ({rc})")
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)),
+          "cuGraphGetNodes")
+    kind = ctypes.c_int(-1)
+    names = []
+    for node in nodes:
+        node = ctypes.c_void_p(node)
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = KernelNodeParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)),
+              "cuGraphKernelNodeGetParams_v2")
+        name = ctypes.c_char_p()
+        if params.func:
+            check(cu.cuFuncGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(params.func)),
+                  "cuFuncGetName")
+        else:  # a library kernel (CUkernel) the node launches as it is
+            check(cu.cuKernelGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(params.kern)),
+                  "cuKernelGetName")
+        names.append(name.value.decode())
+    return names
+
+
+def graph_kernels(fn) -> list[str]:
+    """The kernels ``fn()`` launches, by name: the kernel nodes of a CUDA
+    graph it is captured in (``graph_kernel_names``)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -405,22 +481,9 @@ def graph_kernels(fn) -> int:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
-    cu = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    kind = ctypes.c_int(-1)
-    kernels = 0
-    for node in nodes:
-        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
-            raise RuntimeError("cuGraphNodeGetType failed")
-        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    names = graph_kernel_names(graph)
     torch.cuda.synchronize()
-    return kernels
+    return names
 
 
 def bits(x: torch.Tensor) -> torch.Tensor:
@@ -859,6 +922,29 @@ def k1_timing(pairs) -> dict:
     }
 
 
+def hfsp_batch_by_name(specs) -> tuple[int, int]:
+    """The K1 kernels the packed batch of ``specs`` launches, by name:
+    ``run_packed`` runs it with each chunk captured in a CUDA graph, whose
+    kernel nodes libcuda names (``graph_kernel_names``), then replayed.
+    Returns (the kernels whose name holds "waterfill", the chunks)."""
+    from repro_torch.accel import cell_step
+
+    by_chunk = []
+
+    def in_graph(chunk, state):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            out = chunk(state)
+        by_chunk.append(sum("waterfill" in n
+                            for n in graph_kernel_names(graph)))
+        graph.replay()
+        return out
+
+    cell_step.run_packed(cell_step.params_from_numpy(
+        cell_step.pack_cells(cells_of(specs)), "cuda"), run_chunk=in_graph)
+    return sum(by_chunk), len(by_chunk)
+
+
 def phase_kernel_timing(main_launches: int, wide_specs):
     from repro_torch.accel import cell_step
     from repro_torch.accel import waterfill as wf
@@ -878,30 +964,30 @@ def phase_kernel_timing(main_launches: int, wide_specs):
     emit("launch_floor", op="one-element add_", ms_per_launch=floor_ms)
 
     # The main path's K1 launches by kernel name: its hfsp batch once more,
-    # under the profiler.  Profiles run after the timed accel phases: a
-    # process that has run the profiler launches kernels more slowly.
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        cell_step.run_packed(cell_step.params_from_numpy(
-            cell_step.pack_cells(cells_of(hfsp_specs)),
-            "cuda"))
-        torch.cuda.synchronize()
-    by_name = sum(ev.count for ev in prof.key_averages()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA
-                  and "waterfill" in ev.key)
+    # counted by libcuda's graph API in graphs of its chunks.  The
+    # profiler is no count: it has lost K1 records at random (1021 of
+    # 1024 over the whole batch, 1022 summed over windows of 64 steps).
+    by_name, chunks = hfsp_batch_by_name(hfsp_specs)
     if by_name != main_launches:
         raise AssertionError(f"hfsp batch: {by_name} water-fill kernels by "
-                             f"name in the profile, want {main_launches}")
-    emit("main_path_by_profile", waterfill_launches=by_name)
-    # The kernels one hfsp step launches, counted by the CUDA driver API in a
-    # graph of the step (the profiler's count below may miss a few).
+                             f"name in {chunks} chunk graphs, want "
+                             f"{main_launches}")
+    emit("main_path_by_name", waterfill_launches=by_name, chunks=chunks,
+         counted_by="libcuda, kernel nodes of each chunk's graph")
+    # The kernels one hfsp step launches, by name, counted by libcuda's
+    # graph API in a graph of the step (the profiler's count below may
+    # miss a few): K1 once.
     with torch.no_grad():
         step_kernels = graph_kernels(
             lambda: cell_step._cell_step(params, state, wf.launch_pair))
+    step_k1 = sum("waterfill" in n for n in step_kernels)
+    if step_k1 != 1:
+        raise AssertionError(f"one hfsp step's graph holds {step_k1} "
+                             "water-fill kernels, want 1")
 
     # Short profile of the hfsp step: device time by kernel and the
     # device's busy share of the wall.
+    from torch.profiler import ProfilerActivity, profile
 
     n_prof = 32
     torch.cuda.synchronize()
@@ -918,9 +1004,6 @@ def phase_kernel_timing(main_launches: int, wide_specs):
     wf_events = [ev for ev in kernels if "waterfill" in ev.key]
     wf_us = sum(ev.self_device_time_total for ev in wf_events)
     wf_count = sum(ev.count for ev in wf_events)
-    if wf_count != n_prof:
-        raise AssertionError(f"hfsp step profile: {wf_count} water-fill "
-                             f"kernels in {n_prof} steps, want one a step")
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:5]
     measured = total_dev_us > 0
     emit("profile_hfsp_step", steps=n_prof, batch=list(params["arrival"].shape),
@@ -930,7 +1013,8 @@ def phase_kernel_timing(main_launches: int, wide_specs):
          device_busy_share=(total_dev_us / 1e6 / wall) if measured
          else "not measured",
          kernel_launches_per_step=sum(ev.count for ev in kernels) / n_prof,
-         kernel_launches_per_step_by_graph=step_kernels,
+         kernel_launches_per_step_by_graph=len(step_kernels),
+         waterfill_launches_per_step_by_graph=step_k1,
          waterfill_launches_per_step=wf_count / n_prof,
          waterfill_share_of_device=(wf_us / total_dev_us) if measured
          else "not measured",
@@ -2047,11 +2131,12 @@ FLASH_CASES = (
     ("window300-8tiles", 1, 4, 2, 1024, 64, 128, 128, 300, True),
     ("non-causal", 1, 4, 2, 384, 64, 128, 128, None, False),
     ("olmo-1b", 4, 16, 16, 4096, 128, 512, 512, None, True),
-    ("starcoder2-3b", 1, 24, 2, 2048, 128, 512, 512, None, True),
+    ("starcoder2-3b", 4, 24, 2, 4096, 128, 512, 512, None, True),
     ("hd80", 1, 4, 2, 96, 80, 32, 32, None, True),
     ("zamba2-2.7b", 4, 32, 32, 4096, 80, 512, 512, None, True),
     ("granite-moe-3b", 4, 24, 8, 4096, 64, 512, 512, None, True),
     ("llava-next-34b", 1, 56, 8, 4096, 128, 512, 512, None, True),
+    ("command-r-35b", 4, 64, 8, 4096, 128, 512, 512, None, True),
 )
 #: dtype -> the (atol, rtol) pairs K2 must meet against its plain
 #: version, each elementwise: f32 sums in another order; bf16 rounds P
@@ -3151,34 +3236,6 @@ def phase_ssd_timing(seed: int, serve_launches: int, per_prefill: int):
     return entry
 
 
-def phase_flash_timing_hd80(seed: int, serve_launches: int,
-                            per_prefill: int) -> dict:
-    """K2 at zamba2-2.7b's shared attention call (4, 32, 4096, 80) bf16:
-    its time beside its bound, its plain version and SDPA."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.flash_attention import kernel as fk
-
-    b, h, kvh, s, hd = 4, 32, 32, 4096, 80
-    dtype = torch.bfloat16
-    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
-    q, k, v = flash_inputs(gen, b, h, kvh, s, hd, dtype)
-    kw = dict(scale=hd ** -0.5)
-    got = fk.flash_attention_cuda(q, k, v, **kw)
-    want = fk.flash_attention_plain(q, k, v, **kw)
-    torch.cuda.synchronize()
-    max_err = (got.float() - want.float()).abs().max().item()
-    plain_ms = cuda_ms(lambda: fk.flash_attention_plain(q, k, v, **kw), 2)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=kw["scale"]), 10)
-    entry = {"shape": [b, h, kvh, s, hd], "dtype": "bfloat16",
-             "launches": serve_launches, "launches_per_prefill": per_prefill,
-             "max_abs_err": max_err, "plain_ms": plain_ms,
-             **flash_speed(fk, q, k, v, kw, library_ms, dtype)}
-    emit("flash_timing_hd80", **entry)
-    return entry
-
-
 # ---------------------------------------------------------------------------
 # Training (olmo-1b at full width), the gang runtime and ml-workload
 # ---------------------------------------------------------------------------
@@ -3532,17 +3589,35 @@ FAMILIES = (
      "in for the conv frontend (a stub in both packages); the decoder "
      "prefill is whisper's 448-token context; encdec attention is the "
      "plain route"),
-    ("command_r_35b", 2, (4, 4096), 2,
-     "2 of 40 layers at published widths: 30.3 B parameters in f32 master "
-     "weights (121 GB) do not fit in 80 GB"),
-    ("llava_next_34b", 2, (1, 1216), 2,
-     "2 of 60 layers at published widths: 34 B parameters in f32 do not "
-     "fit in 80 GB; 2880 patch embeddings (bf16, from --seed, the vision "
-     "tower is a stub) and 1216 text tokens make 4096"),
     ("llama4_scout_17b", 2, (4, 4096), 2,
-     "2 of 48 layers at published widths: 2.20 B parameters a layer (8.8 "
-     "GB in f32) do not fit 48 deep in 80 GB"),
+     "2 of 48 layers at published widths: 106.7 B parameters (213.5 GB "
+     "even in bf16) do not fit in 80 GB"),
 )
+#: The configs ``full_depth_serve`` runs whole, after every phase that
+#: holds large tensors: (config, prefill (b, text tokens), K2 launches per
+#: prefill (one a layer), the dtype its weights are stored in, what was
+#: cut and why).  command-r-35b and llava-next-34b store bf16 weights
+#: (``param_dtype``, the reference's own field): their f32 trees (121.1 and
+#: 135.7 GB) do not fit in 80 GB, and ``bf16_storage_check`` shows the
+#: products bitwise those of f32 storage.
+FULL_DEPTH = (
+    ("starcoder2_3b", (4, 4096), 30, "float32",
+     "nothing cut; its f32 weights (12.1 GB)"),
+    ("command_r_35b", (4, 4096), 40, "bfloat16",
+     "nothing cut; weights stored in bf16 (param_dtype): 60.6 GB where f32 "
+     "takes 121.1 GB; products bitwise those of f32 storage"),
+    ("llava_next_34b", (1, 1216), 60, "bfloat16",
+     "nothing cut; weights stored in bf16 (param_dtype): 67.9 GB where f32 "
+     "takes 135.7 GB; products bitwise those of f32 storage; 2880 patch "
+     "embeddings (bf16, from --seed, the vision tower is a stub) and 1216 "
+     "text tokens make 4096"),
+)
+#: (prompt, new) tokens of the 4 requests ``greedy_generate`` serves in
+#: ``family_serve``: those of ``serve_main_path``, so that decode tokens/s
+#: compare across the serving phases.
+GENERATE = (64, 32)
+#: Warm decode steps ``family_serve`` profiles.
+DECODE_PROFILE_STEPS = 2
 
 
 def recording(out: list):
@@ -3756,13 +3831,18 @@ def phase_moe_serve_crosscheck(cfg, params, seed: int):
          tokens_top_k_margin_below_1e_6=near_ties)
 
 
-def family_serve(name: str, layers, shape, k2_per_prefill: int, cut: str,
-                 seed: int) -> tuple[str, int]:
-    """One config at its published widths (``layers`` deep when cut):
-    prefill cold and warm with K2's launches per prefill, then
-    ``greedy_generate`` for 4 requests of 8 prompt and 8 new tokens and
-    one decode step's logits.  Returns (the model's name, its K2
-    launches)."""
+def family_serve(phase: str, name: str, layers, shape, k2_per_prefill: int,
+                 cut: str, seed: int, *, param_dtype: str = "float32"
+                 ) -> tuple[str, int, int]:
+    """One config at its published widths (``layers`` deep when cut, its
+    weights stored in ``param_dtype``): prefill cold and warm with K2's
+    launches per prefill, then ``greedy_generate`` for 4 requests of
+    ``GENERATE`` (prompt, new) tokens, one decode step's logits at
+    position 0 of an empty cache, and a profile of the
+    ``DECODE_PROFILE_STEPS`` warm decode steps that follow it over the
+    next prompt tokens.  Raises where the model does not fit or K2 does
+    not run in every attention layer.  Returns (the model's name, its K2
+    launches, K2 launches per prefill)."""
     import gc
 
     from repro_torch.configs import get_config
@@ -3775,12 +3855,21 @@ def family_serve(name: str, layers, shape, k2_per_prefill: int, cut: str,
     )
 
     t_start = time.perf_counter()
-    cfg = get_config(name)
+    cfg = dataclasses.replace(get_config(name), param_dtype=param_dtype)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     params = init_model(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(p.numel() for p in params.parameters())
+    dtypes = sorted({str(p.dtype) for p in params.parameters()})
+    if dtypes != [f"torch.{param_dtype}"]:
+        raise AssertionError(f"{name}: weights stored in {dtypes}, expected "
+                             f"{param_dtype}")
     b, s = shape
     act = cfg.activation_dtype()
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
@@ -3793,7 +3882,8 @@ def family_serve(name: str, layers, shape, k2_per_prefill: int, cut: str,
         batch["frame_embeds"] = torch.randn(
             (b, cfg.num_frames, cfg.d_model), generator=gen,
             device="cuda").to(act)
-    prompts = torch.randint(0, cfg.vocab_size, (4, 8), generator=gen,
+    n_prompt, n_new = GENERATE
+    prompts = torch.randint(0, cfg.vocab_size, (4, n_prompt), generator=gen,
                             device="cuda")
     prefill = make_prefill_step(cfg, use_flash=True, last_token_only=True)
     torch.cuda.reset_peak_memory_stats()
@@ -3813,14 +3903,28 @@ def family_serve(name: str, layers, shape, k2_per_prefill: int, cut: str,
         "moe_dropped_share_mean": sum(
             1.0 - r.keep.float().mean().item() for r in routes) / len(routes)}
     del routes
-    out = greedy_generate(cfg, params, prompts, 8)
-    cache = init_cache(cfg, 4, 16, device="cuda")
-    step_logits, _ = make_decode_step(cfg)(
-        params, prompts[:, :1], torch.zeros(4, dtype=torch.long,
-                                            device="cuda"), cache)
+    t0 = time.perf_counter()
+    out = greedy_generate(cfg, params, prompts, n_new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    step = make_decode_step(cfg)
+    positions = torch.arange(n_prompt, device="cuda")[:, None].repeat(1, 4)
+    cache = init_cache(cfg, 4, n_prompt + n_new, device="cuda")
+    step_logits, cache = step(params, prompts[:, :1], positions[0], cache)
     torch.cuda.synchronize()
     launches = fk.launches
+    decoded = [cache, 0]  # the cache and the last position written
+
+    def decode_next():
+        decoded[1] += 1
+        _, decoded[0] = step(params, prompts[:, decoded[1]:decoded[1] + 1],
+                             positions[decoded[1]], decoded[0])
+
+    prof_decode = profile_device(
+        decode_next, steps=DECODE_PROFILE_STEPS,
+        shares={"k2_share_of_device": KERNEL_OF[torch.bfloat16]})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    total_gb = torch.cuda.mem_get_info()[1] / 1e9
     tokens = b * (s + cfg.num_patches if cfg.family == "vlm" else s)
     if per_prefill != [[k2_per_prefill, k2_per_prefill]] * 2:
         raise AssertionError(f"{name}: K2 launches per prefill (all, "
@@ -3831,32 +3935,109 @@ def family_serve(name: str, layers, shape, k2_per_prefill: int, cut: str,
                 or not bool(torch.isfinite(x).all()):
             raise AssertionError(f"{name}: bad {what} logits "
                                  f"{tuple(x.shape)}")
-    if out.shape != (4, 16) or not torch.equal(out[:, :8], prompts) or \
+    if out.shape != (4, n_prompt + n_new) or \
+            not torch.equal(out[:, :n_prompt], prompts) or \
             int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"{name}: bad greedy output {tuple(out.shape)}")
-    emit("families_serve", model=cfg.name, family=cfg.family,
+    if not max(init_peak_gb, peak_gb) < total_gb:
+        raise AssertionError(f"{name}: peak memory {peak_gb} GB (init "
+                             f"{init_peak_gb} GB) beyond the card's "
+                             f"{total_gb} GB")
+    emit(phase, model=cfg.name, family=cfg.family,
          layers=cfg.num_layers, published_layers=get_config(name).num_layers,
          reduced=cut, d_model=cfg.d_model, heads=[cfg.num_heads,
                                                   cfg.kv_heads],
-         head_dim=cfg.head_size, params=n_params,
+         head_dim=cfg.head_size, params=n_params, param_dtype=param_dtype,
+         dtype=cfg.dtype, init_s=init_s, init_peak_memory_gb=init_peak_gb,
          prefill_batch=[b, s], prefill_tokens=tokens,
          prefill_cold_s=walls[0], prefill_warm_s=walls[1],
+         prefill_cold_tokens_per_s=tokens / walls[0],
          prefill_warm_tokens_per_s=tokens / walls[1],
          k2_launches_per_prefill=per_prefill[0][1], k2_launches=launches,
-         generate=[4, 8, 8], peak_memory_gb=peak_gb, **moe_fields,
+         generate_requests=4, generate_prompt=n_prompt, generate_new=n_new,
+         generate_s=gen_s, decode_new_tokens_per_s=4 * n_new / gen_s,
+         peak_memory_gb=peak_gb, memory_total_gb=total_gb, **moe_fields,
+         profile_decode_step=prof_decode,
          seconds=time.perf_counter() - t_start)
-    del params, cache, logits, step_logits, batch
+    del params, cache, decoded, logits, step_logits, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return cfg.name, launches
+    return cfg.name, launches, per_prefill[0][1]
 
 
 def phase_families_serve(seed: int) -> dict:
     """Every config of ``FAMILIES`` through the port, one after another,
     each model's weights freed before the next one's are built.  Returns
     K2's launches by model."""
-    return dict(family_serve(*entry, seed + i)
-                for i, entry in enumerate(FAMILIES))
+    return {model: launches for model, launches, _ in (
+        family_serve("families_serve", *entry, seed + i)
+        for i, entry in enumerate(FAMILIES))}
+
+
+def phase_full_depth_serve(seed: int) -> dict:
+    """Every config of ``FULL_DEPTH`` at its published depth and widths
+    through ``family_serve``.  Returns (K2's launches, K2's launches per
+    prefill) by model."""
+    out = {}
+    for i, (name, shape, k2, param_dtype, cut) in enumerate(FULL_DEPTH):
+        model, launches, per_prefill = family_serve(
+            "full_depth_serve", name, None, shape, k2, cut, seed + 30 + i,
+            param_dtype=param_dtype)
+        out[model] = (launches, per_prefill)
+    return out
+
+
+def phase_bf16_storage_check(seed: int) -> None:
+    """command-r-35b and llava-next-34b cut to 2 layers, f32 weights from
+    ``seed``: the bf16 prefill with K2 on the f32-stored tree and on the
+    same tree cast to bf16 give bitwise the same logits (every product
+    casts its weight to the activation dtype at use), which is what lets
+    ``full_depth_serve`` store their weights in bf16."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import init_model
+    from repro_torch.serve import make_prefill_step
+
+    for i, (name, shape) in enumerate((("command_r_35b", (1, 4096)),
+                                       ("llava_next_34b", (1, 1216)))):
+        cfg32 = dataclasses.replace(get_config(name), num_layers=2)
+        cfg16 = dataclasses.replace(cfg32, param_dtype="bfloat16")
+        gen = torch.Generator(device="cuda").manual_seed(seed + 40 + i)
+        params = init_model(cfg32, gen, device="cuda")
+        batch = {"tokens": torch.randint(0, cfg32.vocab_size, shape,
+                                         generator=gen, device="cuda")}
+        if cfg32.family == "vlm":
+            batch["patch_embeds"] = torch.randn(
+                (shape[0], cfg32.num_patches, cfg32.d_model), generator=gen,
+                device="cuda").to(cfg32.activation_dtype())
+        runs = []
+        for cfg in (cfg32, cfg16):
+            if cfg is cfg16:
+                params = params.to(torch.bfloat16)
+            before = fk.launches_tc
+            runs.append(make_prefill_step(cfg, use_flash=True)(params, batch))
+            torch.cuda.synchronize()
+            if fk.launches_tc - before != cfg.num_layers:
+                raise AssertionError(f"{name}: the {cfg.param_dtype}-stored "
+                                     "prefill did not run the tensor-core "
+                                     "K2 in every layer")
+        f32_stored, bf16_stored = runs
+        equal = torch.equal(f32_stored, bf16_stored)
+        diff = (f32_stored.float() - bf16_stored.float()).abs().max().item()
+        finite = bool(torch.isfinite(f32_stored).all())
+        emit("bf16_storage_check", model=cfg32.name, layers=2,
+             batch=list(shape), logits_shape=list(f32_stored.shape),
+             dtype=cfg32.dtype, logits_bitwise_equal=equal,
+             max_abs_diff=diff, logits_finite=finite)
+        if not (equal and finite):
+            raise AssertionError(f"{name}: bf16-stored prefill logits differ "
+                                 f"from the f32-stored tree's (max abs diff "
+                                 f"{diff}, finite {finite})")
+        del params, runs, f32_stored, bf16_stored, batch
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 #: The dry-run's cells on the card's host: (arch, shape, flags).  olmo-1b
@@ -4072,17 +4253,18 @@ def dryrun_plain_tree(tree):
     return ParamTree(plain(tree))
 
 
-def phase_flash_timing_hd64(seed: int, serve_launches: int,
-                            per_prefill: int) -> dict:
-    """K2 at granite-moe-3b's attention call (4, 24 -> 8, 4096, 64) bf16:
-    its time beside its bound, its plain version and SDPA."""
+def phase_flash_timing_model(phase: str, shape, seed: int,
+                             serve_launches: int, per_prefill: int) -> dict:
+    """K2 bf16 at a model's prefill call ``shape`` (b, h, kvh, s, hd),
+    causal: its time beside its bound, its plain version and
+    ``F.scaled_dot_product_attention``, with the fields of phase 13."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fk
 
-    b, h, kvh, s, hd = 4, 24, 8, 4096, 64
+    b, h, kvh, s, hd = shape
     dtype = torch.bfloat16
-    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = flash_inputs(gen, b, h, kvh, s, hd, dtype)
     kw = dict(scale=hd ** -0.5)
     got = fk.flash_attention_cuda(q, k, v, **kw)
@@ -4090,13 +4272,14 @@ def phase_flash_timing_hd64(seed: int, serve_launches: int,
     torch.cuda.synchronize()
     max_err = (got.float() - want.float()).abs().max().item()
     plain_ms = cuda_ms(lambda: fk.flash_attention_plain(q, k, v, **kw), 2)
+    gqa = {"enable_gqa": True} if kvh != h else {}
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True, scale=kw["scale"]), 10)
+        q, k, v, is_causal=True, scale=kw["scale"], **gqa), 10)
     entry = {"shape": [b, h, kvh, s, hd], "dtype": "bfloat16",
              "launches": serve_launches, "launches_per_prefill": per_prefill,
              "max_abs_err": max_err, "plain_ms": plain_ms,
              **flash_speed(fk, q, k, v, kw, library_ms, dtype)}
-    emit("flash_timing_hd64", **entry)
+    emit(phase, **entry)
     return entry
 
 
@@ -4183,8 +4366,9 @@ def main() -> int:
     # K2 runs on two main paths: olmo-1b's prefill (hd 128) and zamba2's
     # shared block (hd 80).
     k2["zamba2_hd80"] = run_phase(
-        "flash_timing_hd80", phase_flash_timing_hd80, args.seed,
-        zamba_launches["k2"], zamba_per_prefill["k2"])
+        "flash_timing_hd80", phase_flash_timing_model, "flash_timing_hd80",
+        (4, 32, 32, 4096, 80), args.seed + 9, zamba_launches["k2"],
+        zamba_per_prefill["k2"])
     k2["launches_by_path"] = {"olmo-1b": k2["launches"],
                               "zamba2-2.7b": zamba_launches["k2"]}
     k2["launches"] += zamba_launches["k2"]
@@ -4206,14 +4390,24 @@ def main() -> int:
     family_launches = run_phase("families_serve", phase_families_serve,
                                 args.seed)
     run_phase("dryrun_main_path", phase_dryrun_main_path, args.seed)
-    # K2 runs at head dim 64 on granite's prefill, and on the prefills of
-    # the three other configs whose attention takes it.
+    # K2 runs at head dim 64 on granite's prefill.
     k2["granite_hd64"] = run_phase(
-        "flash_timing_hd64", phase_flash_timing_hd64, args.seed,
-        moe_launches["k2"], moe_per_prefill["k2"])
+        "flash_timing_hd64", phase_flash_timing_model, "flash_timing_hd64",
+        (4, 24, 8, 4096, 64), args.seed + 11, moe_launches["k2"],
+        moe_per_prefill["k2"])
+    run_phase("bf16_storage_check", phase_bf16_storage_check, args.seed)
+    full_depth = run_phase("full_depth_serve", phase_full_depth_serve,
+                           args.seed)
+    # K2 at command-r-35b's prefill call, the widest attention served.
+    k2["command_r_hd128"] = run_phase(
+        "flash_timing_command_r", phase_flash_timing_model,
+        "flash_timing_command_r", (4, 64, 8, 4096, 128), args.seed + 12,
+        *full_depth["command-r-35b"])
     k2["launches_by_path"][cfg.name] = moe_launches["k2"]
     k2["launches_by_path"].update(
         {name: n for name, n in family_launches.items() if n})
+    k2["launches_by_path"].update(
+        {name: n for name, (n, _) in full_depth.items()})
     k2["launches"] = sum(k2["launches_by_path"].values())
     emit("done", total_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [k1, k2, k3, k4, kp]}), flush=True)

@@ -299,6 +299,7 @@ def run_packed(
     max_chunks: int = 256,
     impl: str | None = None,
     on_chunk=None,
+    run_chunk=None,
 ) -> dict:
     """Run a packed ``(B, J)`` cell batch (tensors from
     :func:`params_from_numpy`) to completion on the device they lie on.
@@ -306,7 +307,10 @@ def run_packed(
     Runs ``t_chunk`` steps per chunk; after each chunk only the ``(B,)``
     done mask crosses back to the host, and finished cells no-op inside
     later chunks.  ``on_chunk(chunks_done, cells_done, cells_total)``
-    runs between chunks.  Raises if ``max_chunks`` chunks don't drain
+    runs between chunks.  ``run_chunk(chunk, state)`` runs each chunk and
+    returns the state after it, where ``chunk(state)`` runs its
+    ``t_chunk`` steps (an instrument can wrap the call; by default the
+    chunk just runs).  Raises if ``max_chunks`` chunks don't drain
     the batch (:class:`ChunkBudgetError`: a liveness bug, not a tuning
     knob).  Returns the final
     state as numpy arrays."""
@@ -318,10 +322,16 @@ def run_packed(
     }), device)
     b = state["t"].shape[0]
     absent = params["present"] < 0.5
+
+    def steps(state):
+        for _ in range(int(t_chunk)):
+            state = _cell_step(params, state, water_fill_pair)
+        return state
+
     with torch.no_grad():
         for chunk in range(max_chunks):
-            for _ in range(int(t_chunk)):
-                state = _cell_step(params, state, water_fill_pair)
+            state = (steps(state) if run_chunk is None
+                     else run_chunk(steps, state))
             cell_done = (state["done"] | absent).all(dim=-1).cpu().numpy()
             if on_chunk is not None:
                 on_chunk(chunk + 1, int(cell_done.sum()), b)

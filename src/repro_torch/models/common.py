@@ -4,8 +4,9 @@
 Parameters are nested dicts of tensors under the reference's names (or
 the :class:`~repro_torch.models.params.ParamTree` module that holds them),
 and every function takes ``(cfg, params, inputs)``.  Master parameters
-are kept in ``cfg.param_dtype`` (fp32) and cast to the activation dtype
-at each use, as in the reference.  Initializers draw from a seeded
+are kept in ``cfg.param_dtype`` (fp32 by default; bf16 where a model's
+f32 tree does not fit the card) and cast to the activation dtype at each
+use, as in the reference.  Initializers draw from a seeded
 ``torch.Generator``; they give other numbers than ``jax.random`` from the
 same seed, so the tests carry the reference's parameters across instead
 (:func:`repro_torch.models.params.from_reference`).  With no
@@ -41,12 +42,30 @@ def gen_device(gen: torch.Generator | None) -> torch.device:
 
 def dense_init(gen: torch.Generator | None, shape, in_axis_size: int,
                dtype: str) -> torch.Tensor:
-    """Truncated-normal fan-in init (the common LM choice)."""
+    """Truncated-normal fan-in init (the common LM choice), drawn in f32.
+
+    A float32 leaf is drawn whole.  A leaf stored in another dtype (bf16
+    ``param_dtype``) is drawn one slice of its leading axis at a time, one
+    layer of a stacked leaf, each slice cast into the leaf as it is drawn:
+    the f32 temporary stays at one slice, where a whole draw of
+    command-r-35b's (40, 8192, 22528) MLP leaf would take 29.5 GB beside
+    its cast.  So a leaf of another dtype comes from a random stream of its
+    own, not from the f32 tree's numbers rounded; the f32 draw is as it
+    was."""
+    dt = getattr(torch, dtype)
     if gen is None:
-        return torch.empty(shape, dtype=getattr(torch, dtype), device="meta")
-    t = torch.empty(shape, dtype=torch.float32, device=gen_device(gen))
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * (1.0 / math.sqrt(in_axis_size))).to(getattr(torch, dtype))
+        return torch.empty(shape, dtype=dt, device="meta")
+    scale = 1.0 / math.sqrt(in_axis_size)
+    if dt == torch.float32:
+        t = torch.empty(shape, dtype=torch.float32, device=gen_device(gen))
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return t * scale
+    out = torch.empty(shape, dtype=dt, device=gen_device(gen))
+    for piece in out:
+        t = torch.empty(piece.shape, dtype=torch.float32, device=out.device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        piece.copy_(t.mul_(scale))
+    return out
 
 
 def embed_init(gen: torch.Generator | None, shape, dtype: str

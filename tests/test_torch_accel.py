@@ -218,6 +218,30 @@ def test_padding_neutrality_and_determinism_bitwise():
     assert cell_step.summarize(narrow, a) == cell_step.summarize(wide, b)
 
 
+def test_run_chunk_wraps_each_chunk_bitwise():
+    """``run_packed(run_chunk=...)`` hands every chunk to the wrapper, once
+    a chunk, and the wrapped run is bitwise the plain one."""
+    packed = cell_step.pack_cells([
+        sweep_exec.synthesize_cell(
+            _quick(presets, 0, p, **{"workload.num_jobs": 12}))
+        for p in ("hfsp", "srpt")
+    ])
+    params = cell_step.params_from_numpy(packed, "cpu")
+    wrapped, seen = [], []
+
+    def run_chunk(chunk, state):
+        wrapped.append(int(state["steps"].max()))
+        return chunk(state)
+
+    got = cell_step.run_packed(params, t_chunk=64, run_chunk=run_chunk,
+                               on_chunk=lambda n, *_: seen.append(n))
+    want = cell_step.run_packed(params, t_chunk=64)
+    assert len(wrapped) == len(seen) >= 2
+    assert wrapped[0] == 0 and wrapped[1] <= 64
+    for key in want:
+        assert got[key].tobytes() == want[key].tobytes(), key
+
+
 def test_run_sweep_accel_on_cpu_answers_every_cell():
     from repro_torch.scenarios.spec import SweepSpec
 
